@@ -1,0 +1,94 @@
+"""Rules of the port: ``repro_torch`` imports neither JAX nor ``repro``;
+its entry points run on CUDA unless the caller asks for the CPU, and
+without a CUDA device they raise instead of falling back."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.core import dnn_models as tdm  # noqa: E402
+from repro_torch.core.dse import DSEConfig, run_dse, \
+    run_dse_full  # noqa: E402
+from repro_torch.core.dataflows import table3_for_layer  # noqa: E402
+from repro_torch.core.vectorized import batched_evaluator  # noqa: E402
+from repro_torch.devices import resolve_device  # noqa: E402
+from repro_torch.kernels.maestro_eval import dse_eval  # noqa: E402
+
+SRC = Path(repro_torch.__file__).resolve().parents[1]
+MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_is_listed():
+    for name in ("repro_torch.core.dse", "repro_torch.core.vectorized",
+                 "repro_torch.kernels.maestro_eval.ops",
+                 "repro_torch.interop", "repro_torch.resilience.errors"):
+        assert name in MODULES
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_port_sources_never_name_jax_imports():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax")), path
+            assert not s.startswith(("import repro.", "from repro.",
+                                     "from repro import")), path
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A CPU-only machine, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    op = tdm.vgg16()[10]
+    return op, DSEConfig(pe_range=(8, 16), bw_range=(1.0, 2.0))
+
+
+def test_run_dse_without_device_raises_on_cpu_only_machine(no_cuda):
+    op, cfg = _small()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_dse(op, table3_for_layer("C-P", op), cfg)
+    with pytest.raises(RuntimeError):
+        run_dse_full(op, "KC-P", cfg, scales=(1,))
+
+
+def test_other_entry_points_raise_without_device(no_cuda):
+    op, _ = _small()
+    df = table3_for_layer("C-P", op)
+    with pytest.raises(RuntimeError):
+        batched_evaluator(op, df)
+    with pytest.raises(RuntimeError):
+        dse_eval([8, 16], [1.0, 2.0], op=op, dataflow=df)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+
+
+def test_cpu_on_request(no_cuda):
+    op, cfg = _small()
+    r = run_dse(op, table3_for_layer("C-P", op), cfg, device="cpu")
+    assert r.n_evaluated == 4
+    assert resolve_device("cpu") == torch.device("cpu")
