@@ -79,6 +79,9 @@ def test_dse_eval_counts_launches(cuda):
     assert out.is_cuda and maestro_eval.launches == before + 1
     dse_eval(p.cpu(), b.cpu(), tables=T)  # the plain path launches nothing
     assert maestro_eval.launches == before + 1
+    with pytest.raises(ValueError, match="device"):
+        dse_eval(p, b, tables=T, device="cpu")
+    assert maestro_eval.launches == before + 1
 
 
 def test_kernel_rejects_bad_inputs(cuda):

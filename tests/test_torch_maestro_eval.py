@@ -121,7 +121,7 @@ def test_dse_eval_cpu_takes_plain_path():
     before = maestro_eval.launches
     out = dse_eval(torch.from_numpy(pes), torch.from_numpy(bw), op=top,
                    dataflow=td)
-    assert maestro_eval.launches == before == 0
+    assert maestro_eval.launches == before
     assert out.device.type == "cpu" and out.shape == (len(pes),
                                                       len(FEATURES))
     torch.testing.assert_close(
@@ -131,7 +131,24 @@ def test_dse_eval_cpu_takes_plain_path():
     # numpy input goes where the caller says
     out2 = dse_eval(pes, bw, tables=build_tables(top, td), device="cpu")
     torch.testing.assert_close(out2, out, rtol=0, atol=0)
-    assert maestro_eval.launches == 0
+    assert maestro_eval.launches == before
+
+
+def test_dse_eval_refuses_tensors_off_the_named_device():
+    """Tensors on the CPU with ``device="cuda"`` raise instead of quietly
+    running the plain version; naming their own device is fine."""
+    _, _, top, td = _pair("late", "C-P")
+    tt = build_tables(top, td)
+    pes, bw = _designs(3)
+    p, b = torch.from_numpy(pes), torch.from_numpy(bw)
+    before = maestro_eval.launches
+    for dev in ("cuda", "cuda:0", torch.device("cuda")):
+        with pytest.raises(ValueError, match="device"):
+            dse_eval(p, b, tables=tt, device=dev)
+    torch.testing.assert_close(dse_eval(p, b, tables=tt, device="cpu"),
+                               closed_form_features(p, b, tt), rtol=0,
+                               atol=0)
+    assert maestro_eval.launches == before
 
 
 def test_kernel_wrapper_takes_plain_version_on_cpu():
@@ -141,6 +158,7 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
     tt = build_tables(top, td)
     pes, bw = _designs(6)
     p, b = torch.from_numpy(pes), torch.from_numpy(bw)
+    before = maestro_eval.launches
     torch.testing.assert_close(maestro_eval(p, b, tables=tt),
                                closed_form_features(p, b, tt), rtol=0,
                                atol=0)
@@ -150,7 +168,7 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
         maestro_eval(p, b[:4], tables=tt)
     with pytest.raises(TypeError):
         maestro_eval(pes, bw, tables=tt)
-    assert maestro_eval.launches == 0
+    assert maestro_eval.launches == before
 
 
 def test_tables_reject_multi_level_dataflows():
