@@ -8,8 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure ends the run with a non-zero exit code and no result):
 
 1. require CUDA; print the card's name and power limit; build the
-   ``maestro_eval`` kernel from ``src/repro_torch/kernels/maestro_eval/csrc``
-   and print the build seconds and ptxas report;
+   ``maestro_eval`` and ``flash_attention`` kernels from their sources under
+   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, both at once) and
+   print the build seconds and ptxas registers and spills;
 2. the kernel against its plain PyTorch version on the card, for all 32
    VGG16 × {C-P, X-P} tables: pes 1..16384 × bw {1, 2, 3.5, 8, 64, 128} plus
    4096 random designs each, rtol 1e-6 on all five columns; runtime and macs
@@ -23,10 +24,26 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 4. paper scale: 32 tables × pes 1..16384 × bw 1..1024 (537M designs, one
    2^24-design chunk per table) through ``dse_eval``, timed with CUDA events;
    then the kernel against its plain version on every table's 2^24-design
-   chunk, rtol 1e-6.
+   chunk, rtol 1e-6;
+5. ``flash_attention`` against its plain version (``attention_ref``) with
+   TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6)
+   and bf16 (2e-2), then at the LLM path's shape (B=2, S=2048, 32 query
+   heads over 8 KV heads, head dim 128, bf16, causal; 2e-2);
+6. llama3-8b at full width and depth (32 layers, d_model 4096, d_ff 14336,
+   vocab 128256) with random weights drawn on the card from seed 0:
+   ``loss_fn`` at B=2, S=2048 (finite, near ln(vocab)), timed;
+7. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
+   6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
+   then prefill-then-decode against the full-sequence forward on one
+   prompt; then one forward and four decode steps under ``torch.profiler``
+   for the card's busy and idle time;
+8. the yardstick: ``torch.nn.functional.scaled_dot_product_attention`` at
+   the LLM path's shape, timed once as ``library_ms`` (the port never
+   calls it).
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
-one timed pass of the paper-scale sweep) and read just after it.
+one timed pass of the paper-scale sweep; one ``loss_fn`` forward; the
+serving run) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -46,9 +63,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PAPER_RATE = 0.17e6          # designs/s, the paper's §5.2 DSE
 PEAK_FP32 = 67e12            # H100 SXM data sheet, float32 outside tensor cores
+PEAK_BF16 = 989e12           # H100 SXM data sheet, dense bf16 tensor cores
 BW_SXM, BW_PCIE = 3.35e12, 2.0e12   # H100 SXM / PCIe device memory, B/s
 BYTES_PER_DESIGN = 8 + 20    # pes + bw in, 5 float32 features out
 RTOL = 1e-6
+# flash_attention vs attention_ref: float32 sums in another order (2e-6);
+# bf16 outputs round to 8 mantissa bits (2e-2); tests/test_kernels.py's
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+FLASH_SHAPES = [  # tests/test_kernels.py:19-28, (B, Sq, Sk, Hq, Hkv, D, causal)
+    (1, 128, 128, 2, 2, 64, True),
+    (2, 256, 256, 4, 1, 64, True),
+    (1, 256, 256, 8, 2, 128, True),
+    (2, 128, 128, 2, 2, 64, False),
+    (1, 512, 512, 2, 2, 64, True),
+]
+LLM_SHAPE = (2, 2048, 2048, 32, 8, 128, True)  # llama3-8b, loss_fn at S=2048
 
 
 class SmokeError(RuntimeError):
@@ -90,6 +119,11 @@ def time_ms(fn, reps: int, before=None) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def vgg_tables():
     from repro_torch.core import dataflows, dnn_models
     from repro_torch.kernels.maestro_eval import build_tables
@@ -114,12 +148,23 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # ----------------------------------------------------------------------
 
 def phase_build() -> None:
-    from repro_torch.kernels.maestro_eval.maestro_eval import build
-    lib, seconds, report = build()
-    log(f"[build] {lib.name}: {seconds:.2f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    """Both kernels, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from importlib import import_module
+    from repro_torch.kernels import _build
+    srcs = [(m.SRC, m.NVCC_FLAGS) for m in map(import_module, (
+        "repro_torch.kernels.maestro_eval.maestro_eval",
+        "repro_torch.kernels.flash_attention.flash_attention"))]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        done = [ex.submit(_build.build, *sf) for sf in srcs]
+        results = [f.result() for f in done]
+    for lib, seconds, report in results:
+        log(f"[build] {lib.name}: {seconds:.2f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas: {line.strip()}")
+    log(f"[build] wall {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel_vs_plain(tables, device, n_random: int = 4096,
@@ -237,27 +282,23 @@ def phase_main_path(device, cfg=None, scales=(1, 2, 4, 8)) -> None:
                     f"{p['power_mw']:.4f}")
 
 
-def profile_run_dse(device, cfg=None) -> None:
-    """Where one ``run_dse`` call at the default grid spends its time: the
-    card's busy time (kernels and copies, by ``torch.profiler``) against
-    the call's wall time, and the host-side operators that dominate."""
+def profile_call(fn, label: str, device) -> None:
+    """Where one call of ``fn`` spends its time: the card's busy time
+    (kernels and copies, by ``torch.profiler``) against the call's wall
+    time, and the device kernels and host operators that dominate.  One
+    warm-up call, one unprofiled and one profiled call."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import dnn_models
-    from repro_torch.core.dataflows import table3_for_layer
-    from repro_torch.core.dse import DSEConfig, run_dse
-    cfg = cfg or DSEConfig()
-    op = next(o for o in dnn_models.vgg16() if o.name == "vgg16-conv11")
-    df = table3_for_layer("KC-P", op)
-    run_dse(op, df, cfg, device=device)
-    torch.cuda.synchronize()
+    fn()
+    sync(device)
     t0 = time.perf_counter()
-    r = run_dse(op, df, cfg, device=device)
+    fn()
+    sync(device)
     plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_dse(op, df, cfg, device=device)
-        torch.cuda.synchronize()
+        fn()
+        sync(device)
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -267,10 +308,9 @@ def profile_run_dse(device, cfg=None) -> None:
         s = by_name.setdefault(e.name, [0, 0.0])
         s[0] += 1
         s[1] += e.time_range.elapsed_us()
-    log(f"[profile] run_dse vgg16-conv11 KC-P base, {r.n_evaluated} "
-        f"designs: wall {plain_wall:.4f} s unprofiled, {wall:.4f} s "
-        f"profiled; device busy {busy_s:.6f} s in {len(dev)} kernels and "
-        f"copies: idle share {1 - busy_s / wall:.4f}")
+    log(f"[profile] {label}: wall {plain_wall:.4f} s unprofiled, "
+        f"{wall:.4f} s profiled; device busy {busy_s:.6f} s in {len(dev)} "
+        f"kernels and copies: idle share {1 - busy_s / wall:.4f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                 )[:5]:
         log(f"[profile]   device {us / 1e3:.3f} ms in {n} x {name[:70]}")
@@ -278,6 +318,19 @@ def profile_run_dse(device, cfg=None) -> None:
     for e in host[:6]:
         log(f"[profile]   host self {e.self_cpu_time_total / 1e3:.3f} ms in "
             f"{e.count} x {e.key[:70]}")
+
+
+def profile_run_dse(device, cfg=None) -> None:
+    """One ``run_dse`` call at the default grid."""
+    from repro_torch.core import dnn_models
+    from repro_torch.core.dataflows import table3_for_layer
+    from repro_torch.core.dse import DSEConfig, run_dse
+    cfg = cfg or DSEConfig()
+    op = next(o for o in dnn_models.vgg16() if o.name == "vgg16-conv11")
+    df = table3_for_layer("KC-P", op)
+    n = run_dse(op, df, cfg, device=device).n_evaluated
+    profile_call(lambda: run_dse(op, df, cfg, device=device),
+                 f"run_dse vgg16-conv11 KC-P base, {n} designs", device)
 
 
 def sweep_inputs(device, n_pes: int = 16384, n_bw: int = 1024):
@@ -378,6 +431,225 @@ def kernel_record(tables, device, launches: int, max_abs_err: float,
     }
 
 
+# ----------------------------------------------------------------------
+# the LLM path: flash_attention, llama3-8b forward and serving
+# ----------------------------------------------------------------------
+
+def qkv(shape, dtype, device, seed: int = 0):
+    B, Sq, Sk, Hq, Hkv, D, _ = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=device).to(dtype)
+                 for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+
+
+def phase_flash_vs_plain(device) -> float:
+    """The kernel against ``attention_ref`` on the same inputs; returns the
+    largest absolute error over all shapes."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    worst = 0.0
+    cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
+             for s in FLASH_SHAPES] + [(LLM_SHAPE, torch.bfloat16)]
+    for shape, dt in cases:
+        causal = shape[-1]
+        q, k, v = qkv(shape, dt, device)
+        got = flash_attention(q, k, v, causal=causal).float()
+        sync(device)
+        want = attention_ref(q, k, v, causal=causal).float()
+        check(bool(torch.isfinite(got).all()), f"flash {shape} {dt}: "
+              "non-finite output")
+        d = (got - want).abs()
+        tol = FLASH_TOL[dt]
+        bad = int((d > tol + tol * want.abs()).sum())
+        a = float(d.max())
+        r = float((d / want.abs().clamp(min=1e-6)).max())
+        worst = max(worst, a)
+        log(f"[flash-vs-plain] {shape} {str(dt)[6:]}: max abs err {a:.3g}, "
+            f"max rel err {r:.3g}, beyond atol=rtol={tol}: {bad}")
+        check(bad == 0, f"flash {shape} {dt}: {bad} elements beyond {tol}")
+        del q, k, v, got, want, d
+    return worst
+
+
+def phase_llm_forward(cfg, params, device, B: int = 2, S: int = 2048):
+    """``loss_fn`` at (B, S): once to warm up, then once timed, the launch
+    count set to 0 just before the timed forward and read just after.
+    Returns (loss, seconds, launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                 .astype(np.int32)).to(device)
+             for k in ("tokens", "labels")}
+    with torch.no_grad():
+        registry.loss_fn(params, batch, cfg)
+        sync(device)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        loss = float(registry.loss_fn(params, batch, cfg))
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = flash_attention.launches
+    log(f"[llm-forward] {cfg.name} {cfg.n_layers} layers loss_fn B={B} "
+        f"S={S}: loss {loss:.6g} (ln vocab {np.log(cfg.vocab):.6g}), "
+        f"{seconds:.4f} s, {B * S / seconds:.6g} tokens/s, flash_attention "
+        f"launches {launches}")
+    return loss, seconds, launches
+
+
+def phase_serving(cfg, params, device, n_requests: int = 6, slots: int = 4,
+                  max_len: int = 1024, max_new: int = 32,
+                  prompt_lens=(128, 512)):
+    """``ServeEngine`` end to end; prefill time is the time spent in the
+    engine's whole-batch (re-)prefills, decode time the rest of the run.
+    Returns (finished requests, launches during the run)."""
+    from repro_torch.inference import ServeEngine
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    class Timed(ServeEngine):
+        prefill_s = 0.0
+        prefills = steps = 0
+
+        def _prefill_slot(self, slot, req):
+            sync(device)
+            t0 = time.perf_counter()
+            super()._prefill_slot(slot, req)
+            sync(device)
+            self.prefill_s += time.perf_counter() - t0
+            self.prefills += 1
+
+        def step(self):
+            self.steps += 1
+            return super().step()
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
+    eng = Timed(cfg, params, slots=slots, max_len=max_len, device=device)
+    for n in lens:
+        eng.submit(rng.integers(0, cfg.vocab, n), max_new=max_new)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    decode_s = wall - eng.prefill_s
+    n_tok = sum(len(r.generated) for r in done)
+    log(f"[serving] {cfg.name}: {len(done)} requests (prompts "
+        f"{sorted(int(n) for n in lens)}) through {slots} slots in "
+        f"{eng.steps} steps, {wall:.4f} s: {eng.prefills} prefills "
+        f"{eng.prefill_s:.4f} s, decode {decode_s:.4f} s for {n_tok} "
+        f"tokens = {n_tok / decode_s:.6g} tokens/s; flash_attention "
+        f"launches {launches}")
+    for r in sorted(done, key=lambda r: r.uid):
+        check(len(r.generated) == max_new and all(
+            0 <= t < cfg.vocab for t in r.generated),
+            f"request {r.uid}: {len(r.generated)} tokens, not {max_new}")
+    check(sorted(r.uid for r in done) == list(range(n_requests)),
+          f"serving finished {len(done)} of {n_requests} requests")
+    return done, launches
+
+
+def profile_llm(cfg, params, device, B: int = 2, S: int = 2048,
+                slots: int = 4, prompt: int = 512, steps: int = 4) -> None:
+    """Where the time goes: one ``loss_fn`` forward at (B, S), and
+    ``steps`` decode steps of a ``slots``-wide batch after a prefill of
+    ``prompt`` tokens, each step ending in the host read of the next
+    tokens as the engine's does."""
+    from repro_torch.models import registry
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                 .astype(np.int32)).to(device)
+             for k in ("tokens", "labels")}
+    with torch.no_grad():
+        profile_call(lambda: registry.loss_fn(params, batch, cfg),
+                     f"{cfg.name} loss_fn B={B} S={S}", device)
+        del batch
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (slots, prompt))
+                                .astype(np.int32)).to(device)
+        logits, cache = registry.prefill(params, {"tokens": toks}, cfg,
+                                         prompt + steps + 1)
+        tok0 = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+
+        def decode():
+            c, tok = cache, tok0
+            for _ in range(steps):
+                logits, c = registry.decode_step(params, {"tokens": tok}, c,
+                                                 cfg)
+                tok = torch.argmax(logits[:, -1], -1)[:, None].to(
+                    torch.int32)
+                tok.cpu()
+        profile_call(decode, f"{cfg.name} {steps} decode steps, batch "
+                     f"{slots}, cache {prompt}", device)
+
+
+def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
+                            rel_tol: float = 5e-2) -> float:
+    """Decoding token S-1 with the cache of the prefix against the
+    full-sequence forward at S-1 (``tests/test_archs_smoke.py``'s check),
+    at full width in bf16: relative L2 error of the logits, and the
+    argmax.  Returns the relative error."""
+    from repro_torch.models import registry, transformer
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
+                            .astype(np.int32)).to(device)
+    with torch.no_grad():
+        batch = {"tokens": toks}
+        full, _ = transformer.forward(params, batch, cfg, cache=(
+            transformer.empty_cache(params, batch, cfg, train=False,
+                                    max_len=S + 4)))
+        _, cache = registry.prefill(params, {"tokens": toks[:, :S - 1]}, cfg,
+                                    S + 4)
+        step, _ = registry.decode_step(params, {"tokens": toks[:, S - 1:]},
+                                       cache, cfg)
+    a, b = full[0, -1].float(), step[0, -1].float()
+    rel = float((a - b).norm() / a.norm())
+    same = int(a.argmax()) == int(b.argmax())
+    log(f"[prefill-vs-decode] {cfg.name} S={S}: logits rel L2 err "
+        f"{rel:.4g} (limit {rel_tol}), argmax equal {same}")
+    check(rel <= rel_tol and same, "prefill-then-decode disagrees with the "
+          "full-sequence forward")
+    return rel
+
+
+def flash_record(device, launches: int, max_abs_err: float,
+                 name: str) -> dict:
+    """Kernel, plain version and SDPA times at the LLM path's shape, and
+    the bound: the larger of the causal product's operations over the bf16
+    tensor-core peak and the bytes read and written once over the memory
+    rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    B, Sq, Sk, Hq, Hkv, D, causal = LLM_SHAPE
+    q, k, v = qkv(LLM_SHAPE, torch.bfloat16, device)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk  # (q, k) pairs kept
+    flops = 4 * B * Hq * D * pairs                      # q.k and p.v
+    nbytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
+    mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
+    ops_ms = flops / PEAK_BF16 * 1e3
+    bytes_ms = nbytes / mem_bw * 1e3
+    log(f"[kernel] flash_attention {LLM_SHAPE} bf16: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.6g} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+        f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -403,11 +675,41 @@ def main() -> int:
     profile_run_dse(device)
     launches, sweep_abs = phase_paper_scale(tables, device)
 
-    record = kernel_record(tables, device, launches,
-                           max(max_abs, sweep_abs),
-                           torch.cuda.get_device_name(0))
+    name = torch.cuda.get_device_name(0)
+    records = [kernel_record(tables, device, launches,
+                             max(max_abs, sweep_abs), name)]
+    log(f"[dse] {time.perf_counter() - t0:.1f} s")
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import registry
+    from repro_torch.models.param import count_params, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("[flash-vs-plain] torch.backends.cuda.matmul.allow_tf32 = False: "
+        "the plain version's float32 products are full float32")
+    flash_abs = phase_flash_vs_plain(device)
+
+    cfg = REGISTRY["llama3-8b"]  # full width and depth
+    t1 = time.perf_counter()
+    params = init_params(registry.specs(cfg), 0, device)
+    sync(device)
+    log(f"[llm] {cfg.name} at full width and depth: "
+        f"{count_params(registry.specs(cfg))} parameters drawn on the card "
+        f"in {time.perf_counter() - t1:.2f} s")
+    loss, _, fwd_launches = phase_llm_forward(cfg, params, device)
+    check(np.isfinite(loss) and abs(loss - np.log(cfg.vocab)) < 1.0,
+          f"loss {loss} is not near ln(vocab) = {np.log(cfg.vocab):.4f}")
+    check(fwd_launches == cfg.n_layers, f"loss_fn launched flash_attention "
+          f"{fwd_launches} times, not once per layer ({cfg.n_layers})")
+    _, serve_launches = phase_serving(cfg, params, device)
+    check(serve_launches == 0, f"serving launched flash_attention "
+          f"{serve_launches} times; its prefill runs the cache path")
+    phase_prefill_vs_decode(cfg, params, device)
+    profile_llm(cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    records.append(flash_record(device, fwd_launches, flash_abs, name))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": records}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

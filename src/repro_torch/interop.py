@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port.
 
-This system has no weights: what the two packages must share are the
-layers, the dataflows and the kernel's static tables.  Each is handed over
+On the MAESTRO side the two packages share the layers, the dataflows and
+the kernel's static tables.  Each is handed over
 as plain Python values the reference can export without either package
 importing the other:
 
@@ -15,15 +15,23 @@ importing the other:
 
 Numpy scalars in the plain values are turned into Python numbers, so the
 port's hybrid backend sees static values exactly where the reference does.
+
+The LLM side shares weights: a model's parameters are handed over as a
+nested dict of numpy arrays with the JAX names and layout
+(``params_from_jax``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Iterable, Mapping
 
+import numpy as np
+import torch
+
 from .core import tensor_analysis as ta
 from .core.directives import Cluster, Dataflow, SpatialMap, Sz, TemporalMap
 from .core.tensor_analysis import LayerOp
+from .devices import resolve_device
 from .kernels.maestro_eval.tables import CaseRow, EvalTables
 
 
@@ -125,3 +133,22 @@ def tables_from_plain(plain: Mapping[str, Any]) -> EvalTables:
     plain = _py(dict(plain))
     cases = tuple(CaseRow(**c) for c in plain.pop("cases"))
     return EvalTables(cases=cases, **plain)
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_jax(tree: Mapping[str, Any],
+                    device: str | torch.device | None = None) -> dict:
+    """A nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``
+    of a JAX model's parameters) -> the port's tensors on ``device``, same
+    names, shapes and dtypes."""
+    dev = resolve_device(device)
+    return {k: params_from_jax(v, dev) if isinstance(v, Mapping)
+            else _tensor(v, dev) for k, v in tree.items()}

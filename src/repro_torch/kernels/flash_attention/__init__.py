@@ -1,0 +1,5 @@
+from .flash_attention import flash_attention
+from .ops import attention
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "attention", "attention_ref"]

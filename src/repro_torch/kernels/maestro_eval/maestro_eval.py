@@ -18,23 +18,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import _build
 from .tables import EvalTables
 
 FEATURES = ("runtime", "macs", "throughput", "util", "bw_req")
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "maestro_eval.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+SRC = Path(__file__).resolve().parent / "csrc" / "maestro_eval.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -143,52 +137,9 @@ class _Tables(ctypes.Structure):
             "egress_b", "noc_latency")]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the maestro_eval CUDA kernel "
-                           "is compiled at first use and needs the CUDA "
-                           "toolkit (set CUDA_HOME)")
-    return str(path)
-
-
-def library_path() -> Path:
-    """Where the built kernel lives; the name carries a hash of the source
-    and the flags, so an edited source is rebuilt."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libmaestro_eval-{h.hexdigest()[:16]}.so"
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile ``csrc/maestro_eval.cu`` for ``sm_90a`` unless it is built
-    already.  Returns (library, seconds spent compiling, ptxas report)."""
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0, ""
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: concurrent builds race safely
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+    lib = _build.load(SRC, NVCC_FLAGS)
     fn = lib.maestro_eval_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, _Tables, ctypes.c_void_p,

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ...devices import resolve_device
+from ...devices import input_device
 from .maestro_eval import maestro_eval
 from .tables import build_tables
 
@@ -20,15 +20,7 @@ def dse_eval(pes, bw, *, op=None, dataflow=None, tables=None,
     raises."""
     if tables is None:
         tables = build_tables(op, dataflow)
-    if isinstance(pes, torch.Tensor):
-        dev = pes.device
-        want = None if device is None else torch.device(device)
-        if want is not None and (want.type != dev.type or want.index
-                                 not in (None, dev.index)):
-            raise ValueError(f"dse_eval: inputs lie on {dev}, but "
-                             f"device={want} was asked for")
-    else:
-        dev = resolve_device(device)
+    dev = input_device(pes, device, "dse_eval")
     pes = torch.as_tensor(pes, dtype=torch.int32, device=dev)
     bw = torch.as_tensor(bw, dtype=torch.float32, device=dev)
     return maestro_eval(pes, bw, tables=tables)

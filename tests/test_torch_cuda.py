@@ -1,10 +1,11 @@
-"""The port on the card: the maestro_eval CUDA kernel against its plain
-PyTorch version, its launch count and input checks, and the default
-device.  Imports no JAX, so it runs where only PyTorch is installed:
+"""The port on the card: the maestro_eval and flash_attention CUDA kernels
+against their plain PyTorch versions, their launch counts and input
+checks, and the default device.  Imports no JAX, so it runs where only
+PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Without a CUDA device every test here skips (the kernel has no CPU mode).
+Without a CUDA device every test here skips (the kernels have no CPU mode).
 """
 import numpy as np
 import pytest
@@ -15,6 +16,8 @@ from repro_torch.core import dnn_models, tensor_analysis  # noqa: E402
 from repro_torch.core.dataflows import table3_for_layer  # noqa: E402
 from repro_torch.core.dse import DSEConfig, run_dse  # noqa: E402
 from repro_torch.devices import resolve_device  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention)
 from repro_torch.kernels.maestro_eval import (  # noqa: E402
     build_tables, closed_form_features, dse_eval, maestro_eval)
 
@@ -33,7 +36,7 @@ CASES = [(name, flow) for name in OPS for flow in ("C-P", "X-P")]
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -108,3 +111,77 @@ def test_default_device_is_cuda(cuda):
     np.testing.assert_array_equal(r.stats.runtime, ref.stats.runtime)
     np.testing.assert_allclose(r.stats.energy_pj, ref.stats.energy_pj,
                                rtol=1e-6)
+
+
+# ----------------------------------------------------------------------
+# flash_attention
+# ----------------------------------------------------------------------
+
+FLASH_SHAPES = [  # tests/test_kernels.py:19-28
+    (1, 128, 128, 2, 2, 64, True),
+    (2, 256, 256, 4, 1, 64, True),     # MQA
+    (1, 256, 256, 8, 2, 128, True),    # GQA group 4
+    (2, 128, 128, 2, 2, 64, False),    # bidirectional (encoder)
+    (1, 512, 512, 2, 2, 64, True),     # multiple k blocks
+]
+# float32 sums in another order (2e-6); bf16 outputs round to 8 mantissa
+# bits (2e-2): tests/test_kernels.py's tolerances
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+
+
+def _qkv(B, Sq, Sk, Hq, Hkv, D, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((B, Sq, Hq, D), (B, Sk, Hkv, D),
+                               (B, Sk, Hkv, D)))
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain version's float32 products in full float32."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_kernel_matches_plain(cuda, no_tf32, shape, dtype):
+    *dims, causal = shape
+    q, k, v = _qkv(*dims, dtype, cuda)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, causal=causal).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_kernel_independent_of_tile(cuda):
+    q, k, v = _qkv(1, 256, 256, 2, 2, 64, torch.float32, cuda, seed=1)
+    a = flash_attention(q, k, v, blk_q=64, blk_k=64)
+    b = flash_attention(q, k, v, blk_q=128, blk_k=64)
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
+    q, k, v = _qkv(1, 128, 128, 4, 2, 64, torch.bfloat16, cuda)
+    before = flash_attention.launches
+    flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    flash_attention(q.cpu(), k.cpu(), v.cpu())  # the plain path
+    assert flash_attention.launches == before + 1
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        q96, k96, v96 = _qkv(1, 128, 128, 4, 2, 96, torch.bfloat16, cuda)
+        flash_attention(q96, k96, v96)
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(RuntimeError, match="backward"):
+        flash_attention(q.requires_grad_(True), k, v)
+    assert flash_attention.launches == before + 1

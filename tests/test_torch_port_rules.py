@@ -7,18 +7,26 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.core import dnn_models as tdm  # noqa: E402
 from repro_torch.core.dse import DSEConfig, run_dse, \
     run_dse_full  # noqa: E402
 from repro_torch.core.dataflows import table3_for_layer  # noqa: E402
 from repro_torch.core.vectorized import batched_evaluator  # noqa: E402
 from repro_torch.devices import resolve_device  # noqa: E402
+from repro_torch.inference import ServeEngine  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention, flash_attention)
 from repro_torch.kernels.maestro_eval import dse_eval  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.param import init_params  # noqa: E402
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -28,6 +36,13 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(
 def test_every_module_is_listed():
     for name in ("repro_torch.core.dse", "repro_torch.core.vectorized",
                  "repro_torch.kernels.maestro_eval.ops",
+                 "repro_torch.kernels._build",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.configs.llama3_8b",
+                 "repro_torch.models.layers", "repro_torch.models.transformer",
+                 "repro_torch.models.registry",
+                 "repro_torch.inference.engine",
+                 "repro_torch.launch.llmserve",
                  "repro_torch.interop", "repro_torch.resilience.errors"):
         assert name in MODULES
 
@@ -92,3 +107,48 @@ def test_cpu_on_request(no_cuda):
     r = run_dse(op, table3_for_layer("C-P", op), cfg, device="cpu")
     assert r.n_evaluated == 4
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _llm():
+    cfg = REGISTRY["llama3-8b"].reduced().replace(n_kv_heads=2)
+    return cfg, init_params(registry.specs(cfg), 0, "cpu")
+
+
+def test_llm_entry_points_raise_without_device(no_cuda):
+    cfg, params = _llm()
+    toks = np.zeros((1, 8), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(registry.specs(cfg), 0)
+    with pytest.raises(RuntimeError):
+        registry.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+    with pytest.raises(RuntimeError):
+        registry.prefill(params, {"tokens": toks}, cfg, 16)
+    with pytest.raises(RuntimeError):
+        ServeEngine(cfg, params)
+    q = np.zeros((1, 128, 2, 16), np.float32)
+    with pytest.raises(RuntimeError):
+        attention(q, q, q)
+    with pytest.raises(RuntimeError):
+        interop.params_from_jax({"w": q})
+
+
+def test_llm_entry_points_run_on_cpu_on_request(no_cuda):
+    cfg, params = _llm()
+    toks = np.zeros((1, 8), np.int32)
+    loss = registry.loss_fn(params, {"tokens": toks, "labels": toks}, cfg,
+                            device="cpu")
+    assert np.isfinite(float(loss))
+    logits, cache = registry.prefill(params, {"tokens": toks}, cfg, 16,
+                                     device="cpu")
+    logits, _ = registry.decode_step(params, {"tokens": toks[:, :1]}, cache,
+                                     cfg, device="cpu")
+    assert logits.shape == (1, 1, cfg.padded_vocab)
+    eng = ServeEngine(cfg, params, slots=1, max_len=16, device="cpu")
+    eng.submit(toks[0], max_new=2)
+    assert len(eng.run()[0].generated) == 2
+    q = torch.zeros(1, 128, 2, 16)
+    assert attention(q, q, q).device.type == "cpu"
+    assert flash_attention(q, q, q).device.type == "cpu"
+    with pytest.raises(ValueError, match="asked for"):
+        registry.loss_fn(params, {"tokens": torch.from_numpy(toks),
+                                  "labels": toks}, cfg, device="cuda")
