@@ -8,9 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure ends the run with a non-zero exit code and no result):
 
 1. require CUDA; print the card's name and power limit; build the
-   ``maestro_eval`` and ``flash_attention`` kernels from their sources under
-   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, both at once) and
-   print the build seconds and ptxas registers and spills;
+   ``maestro_eval``, ``flash_attention`` and ``linear_scan`` kernels from
+   their sources under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc``
+   each, all at once) and print the build seconds and ptxas registers and
+   spills;
 2. the kernel against its plain PyTorch version on the card, for all 32
    VGG16 × {C-P, X-P} tables: pes 1..16384 × bw {1, 2, 3.5, 8, 64, 128} plus
    4096 random designs each, rtol 1e-6 on all five columns; runtime and macs
@@ -39,11 +40,31 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    for the card's busy and idle time;
 8. the yardstick: ``torch.nn.functional.scaled_dot_product_attention`` at
    the LLM path's shape, timed once as ``library_ms`` (the port never
-   calls it).
+   calls it);
+9. ``linear_scan`` against its plain version (``linear_scan_ref``) with TF32
+   off: the shapes of ``tests/test_kernels.py`` in float32 (1e-3) and bf16
+   (5e-2), an odd chunk (T = c = 37) with a carried state, and two full-size
+   shapes in float32: rwkv6-1.6b's (B=2, T=2048, H=32, K=V=64, c=256, u,
+   pre-update) and zamba2-7b's Mamba-2 scan (B=1, T=2048, H=112, K=V=64,
+   c=256, post-update), and rwkv6's serving shapes, with u and float32
+   inputs as the prefill gives them: B=4 at c = T = 64 and 96, B=1 at
+   c = T = 127 (also with a carried state); o and the final state are both
+   checked;
+10. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, d_ff 7168,
+   vocab 65536) with random weights drawn on the card from seed 0:
+   ``loss_fn`` at B=2, S=2048 (finite; 24 launches), timed; the same
+   forward with ``scan_op`` forced onto the plain version (loss within
+   1e-3 relative, argmax of the last logits equal);
+11. rwkv6-1.6b serving: ``ServeEngine`` with 4 slots answers 6 requests of
+   64-token prompts x 32 new tokens (every re-prefill at most 96 wide; 24
+   launches per prefill, 0 per decode step); prefill-then-decode against
+   the full-sequence forward, in bf16 at S=128 (rel L2 0.2, argmax equal)
+   and in float32 at S=48 (rel L2 1e-3); one forward and four decode steps
+   under ``torch.profiler``.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
-one timed pass of the paper-scale sweep; one ``loss_fn`` forward; the
-serving run) and read just after it.
+one timed pass of the paper-scale sweep; one ``loss_fn`` forward of each
+model; each serving run) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -78,6 +99,24 @@ FLASH_SHAPES = [  # tests/test_kernels.py:19-28, (B, Sq, Sk, Hq, Hkv, D, causal)
     (1, 512, 512, 2, 2, 64, True),
 ]
 LLM_SHAPE = (2, 2048, 2048, 32, 8, 128, True)  # llama3-8b, loss_fn at S=2048
+# linear_scan vs linear_scan_ref: float32 sums in another order behind the
+# two-sided exp(+-P) factors (1e-3); bf16 inputs and outputs (5e-2);
+# tests/test_kernels.py's
+SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+SCAN_SHAPES = [  # tests/test_kernels.py:57-67, (B, T, H, K, V, post, u, chunk)
+    (1, 64, 1, 16, 16, False, True, 16),
+    (2, 128, 2, 32, 32, False, True, 32),
+    (1, 256, 4, 64, 64, True, False, 64),
+    (2, 128, 2, 16, 48, True, False, 64),
+]
+SCAN_ODD = (2, 37, 2, 16, 24, False, True, 64)     # c = T = 37, with a state
+RWKV_SCAN = (2, 2048, 32, 64, 64, False, True, 256)     # rwkv6-1.6b loss_fn
+MAMBA_SCAN = (1, 2048, 112, 64, 64, True, False, 256)   # zamba2-7b's Mamba-2
+# rwkv6-1.6b serving: the first prefill (c = T = 64), the widest re-prefill
+# (96: a padded second 64-row query tile) and prefill-vs-decode's 127
+SERVE_SCANS = [(4, 64, 32, 64, 64, False, True, 256),
+               (4, 96, 32, 64, 64, False, True, 256),
+               (1, 127, 32, 64, 64, False, True, 256)]
 
 
 class SmokeError(RuntimeError):
@@ -148,22 +187,23 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # ----------------------------------------------------------------------
 
 def phase_build() -> None:
-    """Both kernels, one nvcc each, started together."""
+    """All three kernels, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     from repro_torch.kernels import _build
     srcs = [(m.SRC, m.NVCC_FLAGS) for m in map(import_module, (
         "repro_torch.kernels.maestro_eval.maestro_eval",
-        "repro_torch.kernels.flash_attention.flash_attention"))]
+        "repro_torch.kernels.flash_attention.flash_attention",
+        "repro_torch.kernels.linear_scan.linear_scan"))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as ex:
         done = [ex.submit(_build.build, *sf) for sf in srcs]
         results = [f.result() for f in done]
-    for lib, seconds, report in results:
+    for (src, _), (lib, seconds, report) in zip(srcs, results):
         log(f"[build] {lib.name}: {seconds:.2f} s")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"[build] ptxas: {line.strip()}")
+                log(f"[build] ptxas {src.stem}: {line.strip()}")
     log(f"[build] wall {time.perf_counter() - t0:.2f} s")
 
 
@@ -471,52 +511,67 @@ def phase_flash_vs_plain(device) -> float:
     return worst
 
 
-def phase_llm_forward(cfg, params, device, B: int = 2, S: int = 2048):
+def llm_batch(cfg, device, B: int, S: int, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                .astype(np.int32)).to(device)
+            for k in ("tokens", "labels")}
+
+
+def phase_llm_forward(cfg, params, device, kernel, B: int = 2,
+                      S: int = 2048):
     """``loss_fn`` at (B, S): once to warm up, then once timed, the launch
-    count set to 0 just before the timed forward and read just after.
-    Returns (loss, seconds, launches)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    count of ``kernel`` (the wrapper the path runs) set to 0 just before
+    the timed forward and read just after.  Returns (loss, seconds,
+    launches)."""
     from repro_torch.models import registry
-    rng = np.random.default_rng(0)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
-                                 .astype(np.int32)).to(device)
-             for k in ("tokens", "labels")}
+    batch = llm_batch(cfg, device, B, S)
     with torch.no_grad():
         registry.loss_fn(params, batch, cfg)
         sync(device)
-        flash_attention.launches = 0
+        kernel.launches = 0
         t0 = time.perf_counter()
         loss = float(registry.loss_fn(params, batch, cfg))
         sync(device)
         seconds = time.perf_counter() - t0
-        launches = flash_attention.launches
+        launches = kernel.launches
     log(f"[llm-forward] {cfg.name} {cfg.n_layers} layers loss_fn B={B} "
         f"S={S}: loss {loss:.6g} (ln vocab {np.log(cfg.vocab):.6g}), "
-        f"{seconds:.4f} s, {B * S / seconds:.6g} tokens/s, flash_attention "
-        f"launches {launches}")
+        f"{seconds:.4f} s, {B * S / seconds:.6g} tokens/s, "
+        f"{kernel.__name__} launches {launches}")
     return loss, seconds, launches
 
 
-def phase_serving(cfg, params, device, n_requests: int = 6, slots: int = 4,
-                  max_len: int = 1024, max_new: int = 32,
+def phase_serving(cfg, params, device, kernel, n_requests: int = 6,
+                  slots: int = 4, max_len: int = 1024, max_new: int = 32,
                   prompt_lens=(128, 512)):
     """``ServeEngine`` end to end; prefill time is the time spent in the
     engine's whole-batch (re-)prefills, decode time the rest of the run.
-    Returns (finished requests, launches during the run)."""
+    ``kernel``'s launches are counted apart in the prefills and in the
+    decode steps.  Returns (finished requests, launches in each prefill,
+    launches in all decode steps, width of each prefill)."""
     from repro_torch.inference import ServeEngine
-    from repro_torch.kernels.flash_attention import flash_attention
 
     class Timed(ServeEngine):
-        prefill_s = 0.0
-        prefills = steps = 0
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.prefill_s = 0.0
+            self.prefills = self.steps = 0
+            self.prefill_launches, self.widths = [], []
 
         def _prefill_slot(self, slot, req):
+            self.widths.append(max(
+                [1] + [len(r.prompt) + len(r.generated) for r in
+                       self.active[:slot] + [req] + self.active[slot + 1:]
+                       if r is not None]))
             sync(device)
+            before = kernel.launches
             t0 = time.perf_counter()
             super()._prefill_slot(slot, req)
             sync(device)
             self.prefill_s += time.perf_counter() - t0
             self.prefills += 1
+            self.prefill_launches.append(kernel.launches - before)
 
         def step(self):
             self.steps += 1
@@ -527,27 +582,28 @@ def phase_serving(cfg, params, device, n_requests: int = 6, slots: int = 4,
     eng = Timed(cfg, params, slots=slots, max_len=max_len, device=device)
     for n in lens:
         eng.submit(rng.integers(0, cfg.vocab, n), max_new=max_new)
-    flash_attention.launches = 0
+    kernel.launches = 0
     t0 = time.perf_counter()
     done = eng.run()
     sync(device)
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    decode_launches = kernel.launches - sum(eng.prefill_launches)
     decode_s = wall - eng.prefill_s
     n_tok = sum(len(r.generated) for r in done)
     log(f"[serving] {cfg.name}: {len(done)} requests (prompts "
         f"{sorted(int(n) for n in lens)}) through {slots} slots in "
         f"{eng.steps} steps, {wall:.4f} s: {eng.prefills} prefills "
-        f"{eng.prefill_s:.4f} s, decode {decode_s:.4f} s for {n_tok} "
-        f"tokens = {n_tok / decode_s:.6g} tokens/s; flash_attention "
-        f"launches {launches}")
+        f"{eng.prefill_s:.4f} s (widths {eng.widths}), decode "
+        f"{decode_s:.4f} s for {n_tok} tokens = {n_tok / decode_s:.6g} "
+        f"tokens/s; {kernel.__name__} launches per prefill "
+        f"{eng.prefill_launches}, in decode {decode_launches}")
     for r in sorted(done, key=lambda r: r.uid):
         check(len(r.generated) == max_new and all(
             0 <= t < cfg.vocab for t in r.generated),
             f"request {r.uid}: {len(r.generated)} tokens, not {max_new}")
     check(sorted(r.uid for r in done) == list(range(n_requests)),
           f"serving finished {len(done)} of {n_requests} requests")
-    return done, launches
+    return done, eng.prefill_launches, decode_launches, eng.widths
 
 
 def profile_llm(cfg, params, device, B: int = 2, S: int = 2048,
@@ -587,8 +643,8 @@ def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
                             rel_tol: float = 5e-2) -> float:
     """Decoding token S-1 with the cache of the prefix against the
     full-sequence forward at S-1 (``tests/test_archs_smoke.py``'s check),
-    at full width in bf16: relative L2 error of the logits, and the
-    argmax.  Returns the relative error."""
+    at full width in ``cfg.dtype``: relative L2 error of the logits (held
+    to ``rel_tol``), and the argmax.  Returns the relative error."""
     from repro_torch.models import registry, transformer
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
@@ -605,10 +661,10 @@ def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
     a, b = full[0, -1].float(), step[0, -1].float()
     rel = float((a - b).norm() / a.norm())
     same = int(a.argmax()) == int(b.argmax())
-    log(f"[prefill-vs-decode] {cfg.name} S={S}: logits rel L2 err "
-        f"{rel:.4g} (limit {rel_tol}), argmax equal {same}")
-    check(rel <= rel_tol and same, "prefill-then-decode disagrees with the "
-          "full-sequence forward")
+    log(f"[prefill-vs-decode] {cfg.name} {str(cfg.dtype)[6:]} S={S}: logits "
+        f"rel L2 err {rel:.4g} (limit {rel_tol}), argmax equal {same}")
+    check(rel <= rel_tol and same, "prefill-then-decode "
+          "disagrees with the full-sequence forward")
     return rel
 
 
@@ -650,6 +706,160 @@ def flash_record(device, launches: int, max_abs_err: float,
     }
 
 
+# ----------------------------------------------------------------------
+# the RWKV-6 path: linear_scan, rwkv6-1.6b forward and serving
+# ----------------------------------------------------------------------
+
+def scan_inputs(shape, dtype, device, seed: int = 0, state: bool = False):
+    """r, k, v ~ N(0, 1) in ``dtype``; log_w = -|N(0, 1)| * 0.2 (as
+    ``tests/test_kernels.py`` draws it) and u ~ N(0, 1) in float32; state0
+    N(0, 1) or zeros."""
+    B, T, H, K, V, _, use_u, _ = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def n(*s):
+        return torch.randn(s, generator=g, device=device)
+    r, k, v = (n(B, T, H, d).to(dtype) for d in (K, K, V))
+    lw = -n(B, T, H, K).abs() * 0.2
+    u = n(H, K) if use_u else None
+    s0 = n(B, H, K, V) if state else torch.zeros(B, H, K, V, device=device)
+    return r, k, v, lw, u, s0
+
+
+def phase_scan_vs_plain(device) -> float:
+    """The kernel against ``linear_scan_ref`` on the same inputs, o and the
+    final state; returns the largest absolute error over all shapes."""
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    worst = 0.0
+    cases = [(s, dt, False) for dt in (torch.float32, torch.bfloat16)
+             for s in SCAN_SHAPES] + [
+        (SCAN_ODD, torch.float32, True), (SCAN_ODD, torch.bfloat16, True),
+        (RWKV_SCAN, torch.float32, False),
+        (MAMBA_SCAN, torch.float32, False)] + [
+        (s, torch.float32, False) for s in SERVE_SCANS] + [
+        (SERVE_SCANS[-1], torch.float32, True)]
+    for shape, dt, state in cases:
+        *_, post, _, chunk = shape
+        r, k, v, lw, u, s0 = scan_inputs(shape, dt, device, state=state)
+        o, s = linear_scan(r, k, v, lw, u, s0, chunk=chunk, post_update=post)
+        sync(device)
+        want_o, want_s = linear_scan_ref(r, k, v, lw, u=u, state0=s0,
+                                         chunk=chunk, post_update=post)
+        check(o.dtype == dt and s.dtype == torch.float32,
+              f"linear_scan {shape} {dt}: output dtypes {o.dtype}, {s.dtype}")
+        tol = SCAN_TOL[dt]
+        for name, got, want in (("o", o.float(), want_o), ("state", s,
+                                                           want_s)):
+            check(bool(torch.isfinite(got).all()), f"linear_scan {shape} "
+                  f"{dt}: non-finite {name}")
+            d = (got - want).abs()
+            bad = int((d > tol + tol * want.abs()).sum())
+            a = float(d.max())
+            worst = max(worst, a)
+            log(f"[scan-vs-plain] {shape} {str(dt)[6:]}{' state0' * state} "
+                f"{name}: max abs err {a:.3g}, max |want| "
+                f"{float(want.abs().max()):.3g}, beyond atol=rtol={tol}: "
+                f"{bad}")
+            check(bad == 0, f"linear_scan {shape} {dt} {name}: {bad} "
+                  f"elements beyond {tol}")
+        del r, k, v, lw, u, s0, o, s, want_o, want_s
+    return worst
+
+
+def scan_work(shape) -> tuple[int, int, int]:
+    """(least float32 operations, the chunked form's, bytes) of the scan at
+    ``shape`` with float32 inputs.  Least: the same clamped recurrence run
+    token by token, per (b, t, h) exp(log_w) (K), S = w*S + k v^T (3KV)
+    and r.S (2KV), with the bonus r.(u*k) v (3K + 2V) when u is given.
+    Chunked, from ``csrc/linear_scan.cu``'s arithmetic: per (b, h, chunk)
+    the inter term q_eff S (2cKV), A over the lower triangle with its
+    diagonal (K c(c+1)), A v (V c(c+1)), the state update (2cKV + KV) and
+    the elementwise work (cumsum, two exps, the factors: 6cK; the bonus:
+    3cK; exp(P_last): K); the kernel does more (whole diagonal tiles, A
+    once per 32-column slice of V).  Bytes: r, k, log_w, v read once, o
+    written once, u, state0 read and the state written."""
+    B, T, H, K, V, _, use_u, c = shape
+    least = B * T * H * (5 * K * V + K + ((3 * K + 2 * V) if use_u else 0))
+    tri = c * (c + 1)
+    per_chunk = (4 * c * K * V + K * tri + V * tri + K * V
+                 + (9 if use_u else 6) * c * K + K)
+    chunked = B * H * (T // c) * per_chunk
+    nbytes = 4 * (3 * B * T * H * K + 2 * B * T * H * V
+                  + (H * K if use_u else 0) + 2 * B * H * K * V)
+    return least, chunked, nbytes
+
+
+def scan_record(device, launches: int, max_abs_err: float,
+                name: str) -> dict:
+    """Kernel and plain version at rwkv6-1.6b's shape, and the bound."""
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    *_, post, _, chunk = RWKV_SCAN
+    r, k, v, lw, u, s0 = scan_inputs(RWKV_SCAN, torch.float32, device)
+    ms = time_ms(lambda: linear_scan(r, k, v, lw, u, s0, chunk=chunk,
+                                     post_update=post), 20)
+    plain_ms = time_ms(lambda: linear_scan_ref(
+        r, k, v, lw, u=u, state0=s0, chunk=chunk, post_update=post), 3)
+    flops, chunked, nbytes = scan_work(RWKV_SCAN)
+    mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
+    ops_ms = flops / PEAK_FP32 * 1e3
+    bytes_ms = nbytes / mem_bw * 1e3
+    log(f"[kernel] linear_scan {RWKV_SCAN} float32: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+        f"(operations {ops_ms:.4f}: {flops / 1e9:.6g} GFLOP token by token "
+        f"at 67 TFLOP/s float32; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} "
+        f"MB); the chunked form's {chunked / 1e9:.6g} GFLOP would take "
+        f"{chunked / PEAK_FP32 * 1e3:.4f} ms ({chunked / ms / 1e9:.6g} "
+        f"TFLOP/s done); launches on the main path {launches}")
+    return {
+        "name": "linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/linear_scan.py:84",
+        "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
+def phase_scan_plain_route(cfg, params, device, B: int = 2, S: int = 2048,
+                           rel_tol: float = 1e-3) -> None:
+    """The rwkv6 forward on the card with ``scan_op`` forced onto the plain
+    version (here only: the library has no such switch) against the kernel
+    route: the loss within ``rel_tol`` relative, and the argmax of the
+    last logits equal."""
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops
+    from repro_torch.models import registry, transformer
+    batch = llm_batch(cfg, device, B, S)
+    tokens = {"tokens": batch["tokens"]}
+
+    def run():
+        loss = float(registry.loss_fn(params, batch, cfg))
+        logits, _ = transformer.forward(params, tokens, cfg, cache=(
+            transformer.empty_cache(params, tokens, cfg, train=True)))
+        return loss, logits[:, -1].float()
+
+    with torch.no_grad():
+        loss_k, last_k = run()
+        kernel_op, ops.scan_op = ops.scan_op, linear_scan_ref
+        before = linear_scan.launches
+        try:
+            loss_p, last_p = run()
+        finally:
+            ops.scan_op = kernel_op
+        check(linear_scan.launches == before, "the plain route launched "
+              "the kernel")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    l2 = float((last_k - last_p).norm() / last_p.norm())
+    same = bool((last_k.argmax(-1) == last_p.argmax(-1)).all())
+    log(f"[scan-plain-route] {cfg.name} loss_fn B={B} S={S}: kernel route "
+        f"loss {loss_k:.6g}, plain route {loss_p:.6g}, rel err {rel:.3g} "
+        f"(limit {rel_tol}); last logits rel L2 err {l2:.3g}, argmax equal "
+        f"{same}")
+    check(rel <= rel_tol and same, "the kernel route disagrees with the "
+          "plain route")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -681,11 +891,13 @@ def main() -> int:
     log(f"[dse] {time.perf_counter() - t0:.1f} s")
 
     from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
     from repro_torch.models import registry
     from repro_torch.models.param import count_params, init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[flash-vs-plain] torch.backends.cuda.matmul.allow_tf32 = False: "
-        "the plain version's float32 products are full float32")
+        "the plain versions' float32 products are full float32")
     flash_abs = phase_flash_vs_plain(device)
 
     cfg = REGISTRY["llama3-8b"]  # full width and depth
@@ -695,19 +907,61 @@ def main() -> int:
     log(f"[llm] {cfg.name} at full width and depth: "
         f"{count_params(registry.specs(cfg))} parameters drawn on the card "
         f"in {time.perf_counter() - t1:.2f} s")
-    loss, _, fwd_launches = phase_llm_forward(cfg, params, device)
+    loss, _, fwd_launches = phase_llm_forward(cfg, params, device,
+                                              flash_attention)
     check(np.isfinite(loss) and abs(loss - np.log(cfg.vocab)) < 1.0,
           f"loss {loss} is not near ln(vocab) = {np.log(cfg.vocab):.4f}")
     check(fwd_launches == cfg.n_layers, f"loss_fn launched flash_attention "
           f"{fwd_launches} times, not once per layer ({cfg.n_layers})")
-    _, serve_launches = phase_serving(cfg, params, device)
-    check(serve_launches == 0, f"serving launched flash_attention "
-          f"{serve_launches} times; its prefill runs the cache path")
+    _, pre_l, dec_l, _ = phase_serving(cfg, params, device, flash_attention)
+    check(sum(pre_l) + dec_l == 0, f"serving launched flash_attention "
+          f"{sum(pre_l) + dec_l} times; its prefill runs the cache path")
     phase_prefill_vs_decode(cfg, params, device)
     profile_llm(cfg, params, device)
     del params
     torch.cuda.empty_cache()
     records.append(flash_record(device, fwd_launches, flash_abs, name))
+    log(f"[llama] {time.perf_counter() - t0:.1f} s")
+
+    scan_abs = phase_scan_vs_plain(device)
+    cfg = REGISTRY["rwkv6-1.6b"]  # full width and depth
+    t1 = time.perf_counter()
+    params = init_params(registry.specs(cfg), 0, device)
+    sync(device)
+    log(f"[llm] {cfg.name} at full width and depth: "
+        f"{count_params(registry.specs(cfg))} parameters drawn on the card "
+        f"in {time.perf_counter() - t1:.2f} s")
+    loss, _, scan_launches = phase_llm_forward(cfg, params, device,
+                                               linear_scan)
+    check(bool(np.isfinite(loss)), f"rwkv6 loss {loss} is not finite")
+    check(scan_launches == cfg.n_layers, f"loss_fn launched linear_scan "
+          f"{scan_launches} times, not once per layer ({cfg.n_layers})")
+    phase_scan_plain_route(cfg, params, device)
+    _, pre_l, dec_l, widths = phase_serving(
+        cfg, params, device, linear_scan, max_len=128, prompt_lens=(64, 64))
+    check(max(widths) <= 96, f"a re-prefill was {max(widths)} wide")
+    check(pre_l == [cfg.n_layers] * len(pre_l) and dec_l == 0,
+          f"serving launched linear_scan {pre_l} times in its prefills and "
+          f"{dec_l} times in decode, not {cfg.n_layers} and 0")
+    # bf16 rounding flips avalanche through the 24 layers (a 1e-6 change in
+    # the scan moves the last logits by ~2%: phase_scan_plain_route), and at
+    # S=128 the chunked form clamps log_w at -60/c = -0.47 where the
+    # per-token step does not (the reference's own semantics, ROADMAP queue
+    # 3): bf16 at S=128 is held to 0.2, twice its reading of 0.096 on an
+    # H100 80GB HBM3 at 700 W; 1e-3 is held in float32 at S=48, where
+    # -60/47 lies below every decay -exp(w) ~ -1
+    phase_prefill_vs_decode(cfg, params, device, rel_tol=0.2)
+    cfg32 = cfg.replace(dtype=torch.float32)
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    params32 = f32(params)
+    phase_prefill_vs_decode(cfg32, params32, device, S=48, rel_tol=1e-3)
+    del params32
+    profile_llm(cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    records.append(scan_record(device, scan_launches, scan_abs, name))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

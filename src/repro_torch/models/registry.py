@@ -1,4 +1,5 @@
-"""Family dispatch: one API over the ported architectures.
+"""Family dispatch: one API over the ported decoder families, dense and
+ssm (RWKV-6).
 
     specs(cfg)                                 -> ParamSpec tree
     loss_fn(params, batch, cfg)                -> scalar
@@ -7,6 +8,8 @@
 
 Batch values that are tensors run where they lie; anything else (numpy
 arrays, lists) goes to ``device``, ``cuda`` unless the caller names another.
+A cache (a KV dict, or the RWKV-6 ((state, carries), counter) tuple) is
+made by ``prefill`` on the batch's device and stays there.
 """
 from __future__ import annotations
 

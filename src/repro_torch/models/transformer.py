@@ -1,4 +1,4 @@
-"""Decoder-LM assembly for the dense family.
+"""Decoder-LM assembly for the dense and ssm (RWKV-6) families.
 
 One spec builder and three entry points:
 
@@ -7,26 +7,30 @@ One spec builder and three entry points:
   * ``decode_step(params, batch, cache, cfg)`` -- one token for the batch
 
 Layer weights are stacked on a leading ``L`` axis, as in the JAX package;
-the layer stack is a Python loop that indexes layer ``l`` and stacks the
-new per-layer caches back to ``(L, ...)``.  The moe, ssm and hybrid
-families are not ported yet (ROADMAP, queue 1 item 11).
+each layer stack is a Python loop that indexes layer ``l`` and stacks the
+new per-layer caches (KV caches, or RWKV-6 recurrent states) back to
+``(L, ...)``.  The moe and hybrid families are not ported yet (ROADMAP,
+queue 1 item 11).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from . import ssm
 from .layers import (apply_mlp, apply_norm, attention, attention_specs,
                      cross_entropy, embed_specs, embed_tokens, lm_logits,
                      make_kv_cache, mlp_specs, norm_specs)
 from .param import ParamSpec, SpecTree
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
-            "ported yet; see ROADMAP.md, queue 1 item 11")
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family == "dense" or (cfg.family == "ssm"
+                                 and cfg.ssm_type == "rwkv6"):
+        return
+    raise NotImplementedError(
+        f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
+        "ported yet; see ROADMAP.md, queue 1 item 11")
 
 
 # ----------------------------------------------------------------------
@@ -41,7 +45,7 @@ def frontend_specs(cfg: ModelConfig) -> dict:
 
 
 def lm_specs(cfg: ModelConfig) -> SpecTree:
-    _require_dense(cfg)
+    _require_ported(cfg)
     L = cfg.n_layers
     specs: SpecTree = {"embed": embed_specs(cfg)}
     fn = norm_specs(cfg)
@@ -49,12 +53,17 @@ def lm_specs(cfg: ModelConfig) -> SpecTree:
         specs["final_norm"] = fn
     if cfg.frontend:
         specs["frontend"] = frontend_specs(cfg)
-    block = {"attn": attention_specs(cfg, L)}
-    an = norm_specs(cfg, L)
-    if an:
-        block["attn_norm"] = an
-        block["mlp_norm"] = norm_specs(cfg, L)
-    block["mlp"] = mlp_specs(cfg, L)
+    if cfg.family == "ssm":
+        block = dict(ssm.rwkv6_specs(cfg, L))
+        block["tm_norm"] = norm_specs(cfg, L)
+        block["cm_norm"] = norm_specs(cfg, L)
+    else:
+        block = {"attn": attention_specs(cfg, L)}
+        an = norm_specs(cfg, L)
+        if an:
+            block["attn_norm"] = an
+            block["mlp_norm"] = norm_specs(cfg, L)
+        block["mlp"] = mlp_specs(cfg, L)
     specs["blocks"] = block
     return specs
 
@@ -70,6 +79,17 @@ def _dense_block(pl, x, positions, cache_l, cfg: ModelConfig, decode: bool):
     x = x + a
     h = apply_norm(pl.get("mlp_norm", {}), x, cfg)
     return x + apply_mlp(pl["mlp"], h, cfg), new_cache
+
+
+def _rwkv_block(pl, x, state_l, cfg: ModelConfig, decode: bool):
+    st, tm_carry, cm_carry = state_l
+    h = apply_norm(pl["tm_norm"], x, cfg)
+    y, (st2, tm2) = ssm.rwkv6_time_mix(pl, h, tm_carry, cfg, state=st,
+                                       decode=decode)
+    x = x + y
+    h = apply_norm(pl["cm_norm"], x, cfg)
+    y, cm2 = ssm.rwkv6_channel_mix(pl, h, cm_carry, cfg, decode=decode)
+    return x + y, (st2, tm2, cm2)
 
 
 def _layer(tree: dict, l: int) -> dict:
@@ -90,6 +110,18 @@ def _stack_dense(params, x, positions, cache, cfg: ModelConfig,
     if cache is None:
         return x, None
     return x, {k: torch.stack([c[k] for c in new]) for k in new[0]}
+
+
+def _stack_rwkv(params, x, state, cfg: ModelConfig, decode: bool):
+    """``state`` is (st (L,B,H,K,K), tm carry (L,B,1,D), cm carry
+    (L,B,1,D)); returns x and the new state, stacked the same way."""
+    blocks = params["blocks"]
+    new = []
+    for l in range(blocks["wr"].shape[0]):
+        x, state_l = _rwkv_block(_layer(blocks, l), x,
+                                 tuple(s[l] for s in state), cfg, decode)
+        new.append(state_l)
+    return x, tuple(torch.stack(s) for s in zip(*new))
 
 
 # ----------------------------------------------------------------------
@@ -123,7 +155,7 @@ def embed_input(params, batch, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 
 def forward(params, batch, cfg: ModelConfig, cache=None, decode=False):
-    _require_dense(cfg)
+    _require_ported(cfg)
     if decode:
         length = _cache_length(cache, cfg)
         B = batch["tokens"].shape[0]
@@ -131,7 +163,12 @@ def forward(params, batch, cfg: ModelConfig, cache=None, decode=False):
         x = embed_tokens(params["embed"], batch["tokens"], cfg, positions)
     else:
         x, positions, _ = embed_input(params, batch, cfg)
-    x, cache = _stack_dense(params, x, positions, cache, cfg, decode)
+    if cfg.family == "ssm":
+        state, counter = cache
+        x, state = _stack_rwkv(params, x, state, cfg, decode)
+        cache = (state, counter + x.shape[1])
+    else:
+        x, cache = _stack_dense(params, x, positions, cache, cfg, decode)
     if "final_norm" in params:
         x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["embed"], x, cfg)
@@ -163,18 +200,29 @@ def decode_step(params, batch, cache, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 
 def _cache_length(cache, cfg: ModelConfig):
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return cache[1]  # rwkv: explicit token counter
     return cache["length"][0]
 
 
 def empty_cache(params, batch, cfg: ModelConfig, *, train: bool,
                 max_len: int = 0):
-    """Zero KV cache on the batch's device; for the full-sequence forward
-    (``train``) there is none (no KV retention)."""
-    _require_dense(cfg)
+    """Zero cache on the batch's device.  Dense: a KV cache of ``max_len``
+    positions, none for the full-sequence forward (``train``, no KV
+    retention).  ssm: the zero recurrent state ((st, tm carry, cm carry),
+    token counter), the same for both."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    B, L, dev = tokens.shape[0], cfg.n_layers, tokens.device
+    if cfg.family == "ssm":
+        H, K = cfg.n_heads, cfg.d_model // cfg.n_heads
+        st = torch.zeros((L, B, H, K, K), dtype=torch.float32, device=dev)
+        carry = torch.zeros((L, B, 1, cfg.d_model), dtype=cfg.dtype,
+                            device=dev)
+        return ((st, carry, carry),
+                torch.zeros((), dtype=torch.int32, device=dev))
     if train:
         return None
-    tokens = batch["tokens"]
-    return make_kv_cache(cfg, tokens.shape[0], max_len,
-                         n_layers=cfg.n_layers, dtype=cfg.dtype,
-                         device=tokens.device)
+    return make_kv_cache(cfg, B, max_len, n_layers=L, dtype=cfg.dtype,
+                         device=dev)

@@ -1,6 +1,6 @@
-"""The port on the card: the maestro_eval and flash_attention CUDA kernels
-against their plain PyTorch versions, their launch counts and input
-checks, and the default device.  Imports no JAX, so it runs where only
+"""The port on the card: the maestro_eval, flash_attention and linear_scan
+CUDA kernels against their plain PyTorch versions, their launch counts and
+input checks, and the default device.  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -16,10 +16,15 @@ from repro_torch.core import dnn_models, tensor_analysis  # noqa: E402
 from repro_torch.core.dataflows import table3_for_layer  # noqa: E402
 from repro_torch.core.dse import DSEConfig, run_dse  # noqa: E402
 from repro_torch.devices import resolve_device  # noqa: E402
+from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
+from repro_torch.kernels.linear_scan import (  # noqa: E402
+    linear_scan, linear_scan_ref)
 from repro_torch.kernels.maestro_eval import (  # noqa: E402
     build_tables, closed_form_features, dse_eval, maestro_eval)
+from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.param import init_params  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -185,3 +190,88 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
     with pytest.raises(RuntimeError, match="backward"):
         flash_attention(q.requires_grad_(True), k, v)
     assert flash_attention.launches == before + 1
+
+
+# ----------------------------------------------------------------------
+# linear_scan
+# ----------------------------------------------------------------------
+
+# tests/test_kernels.py's limits: float32 sums in another order behind the
+# two-sided exp(+-P) factors (1e-3); bf16 inputs and outputs (5e-2)
+SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+SCAN_SHAPES = [  # (B, T, H, K, V, post, use_u, chunk)
+    (2, 128, 2, 32, 32, False, True, 32),    # RWKV-6 shape of test_kernels
+    (2, 128, 2, 16, 48, True, False, 64),    # K != V, two V slices
+    (2, 37, 2, 16, 24, False, True, 64),     # odd c = T = 37
+    (1, 512, 1, 64, 64, False, True, 256),   # the model's chunk, clamped
+]
+
+
+def _scan_inputs(B, T, H, K, V, use_u, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    r, k, v = n(B, T, H, K).to(dtype), n(B, T, H, K).to(dtype), \
+        n(B, T, H, V).to(dtype)
+    lw = -n(B, T, H, K).abs() * 0.5
+    u = n(H, K) if use_u else None
+    return r, k, v, lw, u, n(B, H, K, V)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_linear_scan_kernel_matches_plain(cuda, no_tf32, shape, dtype):
+    *dims, post, use_u, chunk = shape
+    r, k, v, lw, u, s0 = _scan_inputs(*dims, use_u, dtype, cuda)
+    o, s = linear_scan(r, k, v, lw, u, s0, chunk=chunk, post_update=post)
+    torch.cuda.synchronize()
+    want_o, want_s = linear_scan_ref(r, k, v, lw, u=u, state0=s0,
+                                     chunk=chunk, post_update=post)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(o.float(), want_o, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, want_s, rtol=tol, atol=tol)
+
+
+def test_linear_scan_counts_launches_and_rejects_bad_inputs(cuda):
+    r, k, v, lw, u, s0 = _scan_inputs(1, 64, 2, 16, 16, True, torch.float32,
+                                      cuda)
+    before = linear_scan.launches
+    o, _ = linear_scan(r, k, v, lw, u, s0, chunk=16)
+    assert linear_scan.launches == before + 1
+    # strided inputs are taken, as their contiguous copies
+    strided, _ = linear_scan(r.transpose(1, 2).contiguous().transpose(1, 2),
+                             k, v, lw, u, s0, chunk=16)
+    torch.testing.assert_close(strided, o, rtol=0, atol=0)
+    before += 1
+    linear_scan(r.cpu(), k.cpu(), v.cpu(), lw.cpu())  # the plain path
+    assert linear_scan.launches == before + 1
+    with pytest.raises(ValueError, match="device"):
+        linear_scan(r, k.cpu(), v, lw)
+    with pytest.raises(ValueError, match="chunks"):
+        linear_scan(*(torch.cat([t] * 8, 1) for t in (r, k, v, lw)),
+                    chunk=512)
+    with pytest.raises(ValueError, match="K <= 64"):
+        w = torch.zeros(1, 8, 1, 128, device=cuda)
+        linear_scan(w, w, w, w)
+    with pytest.raises(RuntimeError, match="backward"):
+        linear_scan(r.requires_grad_(True), k, v, lw)
+    assert linear_scan.launches == before + 1
+
+
+def test_rwkv_forward_launches_linear_scan_once_per_layer(cuda):
+    cfg = REGISTRY["rwkv6-1.6b"].reduced()
+    params = init_params(registry.specs(cfg), 0, cuda)
+    toks = torch.zeros((2, 32), dtype=torch.int32, device=cuda)
+    before = linear_scan.launches
+    with torch.no_grad():
+        loss = registry.loss_fn(params, {"tokens": toks, "labels": toks},
+                                cfg)
+        _, cache = registry.prefill(params, {"tokens": toks}, cfg, 40)
+        mid = linear_scan.launches
+        registry.decode_step(params, {"tokens": toks[:, :1]}, cache, cfg)
+    assert np.isfinite(float(loss))
+    assert mid == before + 2 * cfg.n_layers
+    assert linear_scan.launches == mid  # decode runs the per-token step

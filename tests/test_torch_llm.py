@@ -100,8 +100,11 @@ def test_dense_specs_match_reference(arch):
             int(np.prod(s.shape)) for s in js.values())
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(
+    a for a in ARCHS if J_REGISTRY[a].family not in ("dense", "ssm")))
 def test_other_families_are_not_ported_yet(arch):
+    """moe, hybrid and encdec; the ssm family (rwkv6-1.6b) is ported and
+    held against the reference in tests/test_torch_ssm.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.specs(REGISTRY[arch].reduced())
 

@@ -24,6 +24,7 @@ from repro_torch.devices import resolve_device  # noqa: E402
 from repro_torch.inference import ServeEngine  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention, flash_attention)
+from repro_torch.kernels.linear_scan import linear_scan, scan_op  # noqa: E402
 from repro_torch.kernels.maestro_eval import dse_eval  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.param import init_params  # noqa: E402
@@ -38,6 +39,10 @@ def test_every_module_is_listed():
                  "repro_torch.kernels.maestro_eval.ops",
                  "repro_torch.kernels._build",
                  "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.linear_scan.linear_scan",
+                 "repro_torch.kernels.linear_scan.ops",
+                 "repro_torch.kernels.linear_scan.ref",
+                 "repro_torch.models.ssm",
                  "repro_torch.configs.llama3_8b",
                  "repro_torch.models.layers", "repro_torch.models.transformer",
                  "repro_torch.models.registry",
@@ -152,3 +157,44 @@ def test_llm_entry_points_run_on_cpu_on_request(no_cuda):
     with pytest.raises(ValueError, match="asked for"):
         registry.loss_fn(params, {"tokens": torch.from_numpy(toks),
                                   "labels": toks}, cfg, device="cuda")
+
+
+def _rwkv():
+    cfg = REGISTRY["rwkv6-1.6b"].reduced()
+    return cfg, init_params(registry.specs(cfg), 0, "cpu")
+
+
+def test_rwkv_entry_points_raise_without_device(no_cuda):
+    cfg, params = _rwkv()
+    toks = np.zeros((1, 8), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+    with pytest.raises(RuntimeError):
+        registry.prefill(params, {"tokens": toks}, cfg, 16)
+    with pytest.raises(RuntimeError):
+        ServeEngine(cfg, params)
+
+
+def test_rwkv_entry_points_run_on_cpu_on_request(no_cuda):
+    cfg, params = _rwkv()
+    toks = np.zeros((1, 8), np.int32)
+    loss = registry.loss_fn(params, {"tokens": toks, "labels": toks}, cfg,
+                            device="cpu")
+    assert np.isfinite(float(loss))
+    logits, cache = registry.prefill(params, {"tokens": toks}, cfg, 16,
+                                     device="cpu")
+    assert all(t.device.type == "cpu" for t in cache[0]) and \
+        cache[1].device.type == "cpu"
+    logits, _ = registry.decode_step(params, {"tokens": toks[:, :1]}, cache,
+                                     cfg, device="cpu")
+    assert logits.shape == (1, 1, cfg.padded_vocab)
+    eng = ServeEngine(cfg, params, slots=1, max_len=16, device="cpu")
+    eng.submit(toks[0], max_new=2)
+    assert len(eng.run()[0].generated) == 2
+    x = torch.zeros(1, 16, 2, 8)
+    o, s = scan_op(x, x, x, x, chunk=8)
+    assert o.device.type == s.device.type == "cpu"
+    assert linear_scan(x, x, x, x)[0].device.type == "cpu"
+    with pytest.raises(ValueError, match="asked for"):
+        registry.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
+                         16, device="cuda")
