@@ -11,7 +11,8 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    ``maestro_eval``, ``flash_attention`` and ``linear_scan`` kernels from
    their sources under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc``
    each, all at once) and print the build seconds and ptxas registers and
-   spills;
+   spills; ``cuobjdump -sass`` of the flash library must show HGMMA (wgmma
+   on the tensor cores) and UTMALDG (TMA loads);
 2. the kernel against its plain PyTorch version on the card, for all 32
    VGG16 × {C-P, X-P} tables: pes 1..16384 × bw {1, 2, 3.5, 8, 64, 128} plus
    4096 random designs each, rtol 1e-6 on all five columns; runtime and macs
@@ -27,20 +28,23 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    then the kernel against its plain version on every table's 2^24-design
    chunk, rtol 1e-6;
 5. ``flash_attention`` against its plain version (``attention_ref``) with
-   TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6)
-   and bf16 (2e-2), then at the LLM path's shape (B=2, S=2048, 32 query
-   heads over 8 KV heads, head dim 128, bf16, causal; 2e-2);
+   TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
+   the SIMT kernel) and bf16 (2e-2, the wgmma kernel), then at the LLM
+   path's shape (B=2, S=2048, 32 query heads over 8 KV heads, head dim 128,
+   bf16, causal; 2e-2), each at every tile its kernel takes;
 6. llama3-8b at full width and depth (32 layers, d_model 4096, d_ff 14336,
    vocab 128256) with random weights drawn on the card from seed 0:
-   ``loss_fn`` at B=2, S=2048 (finite, near ln(vocab)), timed;
+   ``loss_fn`` at B=2, S=2048 (finite, near ln(vocab)), timed; the same
+   forward with ``layers.flash_attention`` forced onto ``attention_ref``
+   (loss within 1e-3 relative; the last logits' rel L2 printed);
 7. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
    6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
    then prefill-then-decode against the full-sequence forward on one
    prompt; then one forward and four decode steps under ``torch.profiler``
    for the card's busy and idle time;
-8. the yardstick: ``torch.nn.functional.scaled_dot_product_attention`` at
-   the LLM path's shape, timed once as ``library_ms`` (the port never
-   calls it);
+8. the kernel at the LLM path's shape at each of its tiles, and the
+   yardstick: ``torch.nn.functional.scaled_dot_product_attention`` there,
+   timed as ``library_ms`` (the port never calls it);
 9. ``linear_scan`` against its plain version (``linear_scan_ref``) with TF32
    off: the shapes of ``tests/test_kernels.py`` in float32 (1e-3) and bf16
    (5e-2), an odd chunk (T = c = 37) with a carried state, and two full-size
@@ -187,7 +191,8 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # ----------------------------------------------------------------------
 
 def phase_build() -> None:
-    """All three kernels, one nvcc each, started together."""
+    """All three kernels, one nvcc each, started together; then the flash
+    library's SASS must hold the tensor-core product and a TMA load."""
     from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     from repro_torch.kernels import _build
@@ -205,6 +210,25 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas {src.stem}: {line.strip()}")
     log(f"[build] wall {time.perf_counter() - t0:.2f} s")
+    sass_check(results[1][0])
+
+
+def sass_check(lib: Path) -> None:
+    """``cuobjdump -sass`` of the flash library: the wgmma kernel must
+    compile to tensor-core products (HGMMA) fed by TMA loads (UTMALDG)."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+        "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    log(f"[build] SASS of {lib.name}: " +
+        ", ".join(f"{op} {n}" for op, n in counts.items()))
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, "the flash "
+          "library's SASS holds no HGMMA or no UTMALDG: the bf16 kernel "
+          "does not run on the tensor cores through TMA")
 
 
 def phase_kernel_vs_plain(tables, device, n_random: int = 4096,
@@ -322,11 +346,12 @@ def phase_main_path(device, cfg=None, scales=(1, 2, 4, 8)) -> None:
                     f"{p['power_mw']:.4f}")
 
 
-def profile_call(fn, label: str, device) -> None:
+def profile_call(fn, label: str, device, kernel: str | None = None) -> None:
     """Where one call of ``fn`` spends its time: the card's busy time
     (kernels and copies, by ``torch.profiler``) against the call's wall
-    time, and the device kernels and host operators that dominate.  One
-    warm-up call, one unprofiled and one profiled call."""
+    time, the device kernels and host operators that dominate, and the
+    device time and share of busy time of the kernels whose name holds
+    ``kernel``.  One warm-up call, one unprofiled and one profiled call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(device)
@@ -353,7 +378,13 @@ def profile_call(fn, label: str, device) -> None:
         f"kernels and copies: idle share {1 - busy_s / wall:.4f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                 )[:5]:
-        log(f"[profile]   device {us / 1e3:.3f} ms in {n} x {name[:70]}")
+        log(f"[profile]   device {us / 1e3:.3f} ms ({us / 1e6 / busy_s:.4f} "
+            f"of busy) in {n} x {name[:70]}")
+    if kernel is not None:
+        n, us = (sum(v[i] for k, v in by_name.items() if kernel in k)
+                 for i in (0, 1))
+        log(f"[profile]   {kernel}: device {us / 1e3:.3f} ms in {n} "
+            f"launches, {us / 1e6 / max(busy_s, 1e-12):.4f} of busy")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in host[:6]:
         log(f"[profile]   host self {e.self_cpu_time_total / 1e3:.3f} ms in "
@@ -483,31 +514,38 @@ def qkv(shape, dtype, device, seed: int = 0):
 
 
 def phase_flash_vs_plain(device) -> float:
-    """The kernel against ``attention_ref`` on the same inputs; returns the
-    largest absolute error over all shapes."""
+    """The kernel against ``attention_ref`` on the same inputs, at every
+    tile the kernel for (dtype, D) takes; returns the largest absolute
+    error over all shapes."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.flash_attention import tiles
     worst = 0.0
     cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
              for s in FLASH_SHAPES] + [(LLM_SHAPE, torch.bfloat16)]
     for shape, dt in cases:
-        causal = shape[-1]
+        causal, D = shape[-1], shape[-2]
         q, k, v = qkv(shape, dt, device)
-        got = flash_attention(q, k, v, causal=causal).float()
-        sync(device)
         want = attention_ref(q, k, v, causal=causal).float()
-        check(bool(torch.isfinite(got).all()), f"flash {shape} {dt}: "
-              "non-finite output")
-        d = (got - want).abs()
         tol = FLASH_TOL[dt]
-        bad = int((d > tol + tol * want.abs()).sum())
-        a = float(d.max())
-        r = float((d / want.abs().clamp(min=1e-6)).max())
-        worst = max(worst, a)
-        log(f"[flash-vs-plain] {shape} {str(dt)[6:]}: max abs err {a:.3g}, "
-            f"max rel err {r:.3g}, beyond atol=rtol={tol}: {bad}")
-        check(bad == 0, f"flash {shape} {dt}: {bad} elements beyond {tol}")
-        del q, k, v, got, want, d
+        for blk_q, blk_k in tiles(dt, D):
+            got = flash_attention(q, k, v, causal=causal, blk_q=blk_q,
+                                  blk_k=blk_k).float()
+            sync(device)
+            check(bool(torch.isfinite(got).all()), f"flash {shape} {dt}: "
+                  "non-finite output")
+            d = (got - want).abs()
+            bad = int((d > tol + tol * want.abs()).sum())
+            a = float(d.max())
+            r = float((d / want.abs().clamp(min=1e-6)).max())
+            worst = max(worst, a)
+            log(f"[flash-vs-plain] {shape} {str(dt)[6:]} tile "
+                f"({blk_q}, {blk_k}): max abs err {a:.3g}, max rel err "
+                f"{r:.3g}, beyond atol=rtol={tol}: {bad}")
+            check(bad == 0, f"flash {shape} {dt} ({blk_q}, {blk_k}): {bad} "
+                  f"elements beyond {tol}")
+            del got, d
+        del q, k, v, want
     return worst
 
 
@@ -606,12 +644,13 @@ def phase_serving(cfg, params, device, kernel, n_requests: int = 6,
     return done, eng.prefill_launches, decode_launches, eng.widths
 
 
-def profile_llm(cfg, params, device, B: int = 2, S: int = 2048,
+def profile_llm(cfg, params, device, kernel: str, B: int = 2, S: int = 2048,
                 slots: int = 4, prompt: int = 512, steps: int = 4) -> None:
     """Where the time goes: one ``loss_fn`` forward at (B, S), and
     ``steps`` decode steps of a ``slots``-wide batch after a prefill of
     ``prompt`` tokens, each step ending in the host read of the next
-    tokens as the engine's does."""
+    tokens as the engine's does; the device kernels named ``kernel*``
+    apart."""
     from repro_torch.models import registry
     rng = np.random.default_rng(2)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
@@ -619,7 +658,7 @@ def profile_llm(cfg, params, device, B: int = 2, S: int = 2048,
              for k in ("tokens", "labels")}
     with torch.no_grad():
         profile_call(lambda: registry.loss_fn(params, batch, cfg),
-                     f"{cfg.name} loss_fn B={B} S={S}", device)
+                     f"{cfg.name} loss_fn B={B} S={S}", device, kernel)
         del batch
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (slots, prompt))
                                 .astype(np.int32)).to(device)
@@ -636,7 +675,7 @@ def profile_llm(cfg, params, device, B: int = 2, S: int = 2048,
                     torch.int32)
                 tok.cpu()
         profile_call(decode, f"{cfg.name} {steps} decode steps, batch "
-                     f"{slots}, cache {prompt}", device)
+                     f"{slots}, cache {prompt}", device, kernel)
 
 
 def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
@@ -670,35 +709,46 @@ def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
 
 def flash_record(device, launches: int, max_abs_err: float,
                  name: str) -> dict:
-    """Kernel, plain version and SDPA times at the LLM path's shape, and
-    the bound: the larger of the causal product's operations over the bf16
-    tensor-core peak and the bytes read and written once over the memory
-    rate."""
+    """Kernel (at each of its tiles; the default's time is ``ms``), plain
+    version and SDPA times at the LLM path's shape, and the bound: the
+    larger of the causal product's operations over the bf16 tensor-core
+    peak and the bytes read and written once over the memory rate."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.flash_attention import tiles
     B, Sq, Sk, Hq, Hkv, D, causal = LLM_SHAPE
     q, k, v = qkv(LLM_SHAPE, torch.bfloat16, device)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+    by_tile = {t: time_ms(lambda: flash_attention(
+        q, k, v, causal=causal, blk_q=t[0], blk_k=t[1]), 20)
+        for t in tiles(torch.bfloat16, D)}
+    tile = tiles(torch.bfloat16, D)[0]
+    ms = by_tile[tile]
     plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+        qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk  # (q, k) pairs kept
     flops = 4 * B * Hq * D * pairs                      # q.k and p.v
     nbytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Sk * Hkv * D)
     mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
     ops_ms = flops / PEAK_BF16 * 1e3
     bytes_ms = nbytes / mem_bw * 1e3
+    for t, t_ms in by_tile.items():
+        log(f"[kernel] flash_attention {LLM_SHAPE} bf16 tile {t}: "
+            f"{t_ms:.4f} ms ({flops / t_ms / 1e9:.6g} TFLOP/s)")
     log(f"[kernel] flash_attention {LLM_SHAPE} bf16: kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.6g} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+        f"at the default tile {tile}, plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
-        f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+        f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f}): "
+        f"{max(ops_ms, bytes_ms) / ms:.4f} of the bound")
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "design": f"wgmma bf16 (P rounded to bf16), TMA, 2-stage K/V ring, "
+                  f"BQ={tile[0]}, BK={tile[1]}; float32 on the SIMT kernel",
         "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -821,14 +871,14 @@ def scan_record(device, launches: int, max_abs_err: float,
     }
 
 
-def phase_scan_plain_route(cfg, params, device, B: int = 2, S: int = 2048,
-                           rel_tol: float = 1e-3) -> None:
-    """The rwkv6 forward on the card with ``scan_op`` forced onto the plain
-    version (here only: the library has no such switch) against the kernel
-    route: the loss within ``rel_tol`` relative, and the argmax of the
-    last logits equal."""
-    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
-    from repro_torch.kernels.linear_scan import ops
+def phase_plain_route(cfg, params, device, module, attr: str, kernel, plain,
+                      B: int = 2, S: int = 2048, rel_tol: float = 1e-3,
+                      need_argmax: bool = True) -> None:
+    """The forward on the card with ``module.attr`` (the kernel's wrapper
+    as the model calls it) forced onto the plain version ``plain`` (here
+    only: the library has no such switch) against the kernel route: the
+    loss within ``rel_tol`` relative; the last logits' relative L2 error
+    printed and, with ``need_argmax``, their argmax equal."""
     from repro_torch.models import registry, transformer
     batch = llm_batch(cfg, device, B, S)
     tokens = {"tokens": batch["tokens"]}
@@ -841,23 +891,25 @@ def phase_scan_plain_route(cfg, params, device, B: int = 2, S: int = 2048,
 
     with torch.no_grad():
         loss_k, last_k = run()
-        kernel_op, ops.scan_op = ops.scan_op, linear_scan_ref
-        before = linear_scan.launches
+        wrapper = getattr(module, attr)
+        setattr(module, attr, plain)
+        before = kernel.launches
         try:
             loss_p, last_p = run()
         finally:
-            ops.scan_op = kernel_op
-        check(linear_scan.launches == before, "the plain route launched "
-              "the kernel")
+            setattr(module, attr, wrapper)
+        check(kernel.launches == before, "the plain route launched the "
+              "kernel")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     l2 = float((last_k - last_p).norm() / last_p.norm())
     same = bool((last_k.argmax(-1) == last_p.argmax(-1)).all())
-    log(f"[scan-plain-route] {cfg.name} loss_fn B={B} S={S}: kernel route "
-        f"loss {loss_k:.6g}, plain route {loss_p:.6g}, rel err {rel:.3g} "
-        f"(limit {rel_tol}); last logits rel L2 err {l2:.3g}, argmax equal "
-        f"{same}")
-    check(rel <= rel_tol and same, "the kernel route disagrees with the "
-          "plain route")
+    log(f"[plain-route] {cfg.name} loss_fn B={B} S={S} with {attr} -> "
+        f"{plain.__name__}: kernel route loss {loss_k:.6g}, plain route "
+        f"{loss_p:.6g}, rel err {rel:.3g} (limit {rel_tol}); last logits "
+        f"rel L2 err {l2:.3g}, argmax equal {same}"
+        f"{'' if need_argmax else ' (not required)'}")
+    check(rel <= rel_tol and (same or not need_argmax), "the kernel route "
+          "disagrees with the plain route")
 
 
 def main() -> int:
@@ -891,9 +943,11 @@ def main() -> int:
     log(f"[dse] {time.perf_counter() - t0:.1f} s")
 
     from repro_torch.configs import REGISTRY
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.linear_scan import linear_scan
-    from repro_torch.models import registry
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import layers, registry
     from repro_torch.models.param import count_params, init_params
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[flash-vs-plain] torch.backends.cuda.matmul.allow_tf32 = False: "
@@ -913,11 +967,13 @@ def main() -> int:
           f"loss {loss} is not near ln(vocab) = {np.log(cfg.vocab):.4f}")
     check(fwd_launches == cfg.n_layers, f"loss_fn launched flash_attention "
           f"{fwd_launches} times, not once per layer ({cfg.n_layers})")
+    phase_plain_route(cfg, params, device, layers, "flash_attention",
+                      flash_attention, attention_ref, need_argmax=False)
     _, pre_l, dec_l, _ = phase_serving(cfg, params, device, flash_attention)
     check(sum(pre_l) + dec_l == 0, f"serving launched flash_attention "
           f"{sum(pre_l) + dec_l} times; its prefill runs the cache path")
     phase_prefill_vs_decode(cfg, params, device)
-    profile_llm(cfg, params, device)
+    profile_llm(cfg, params, device, "flash_")
     del params
     torch.cuda.empty_cache()
     records.append(flash_record(device, fwd_launches, flash_abs, name))
@@ -936,7 +992,8 @@ def main() -> int:
     check(bool(np.isfinite(loss)), f"rwkv6 loss {loss} is not finite")
     check(scan_launches == cfg.n_layers, f"loss_fn launched linear_scan "
           f"{scan_launches} times, not once per layer ({cfg.n_layers})")
-    phase_scan_plain_route(cfg, params, device)
+    phase_plain_route(cfg, params, device, scan_ops, "scan_op", linear_scan,
+                      linear_scan_ref)
     _, pre_l, dec_l, widths = phase_serving(
         cfg, params, device, linear_scan, max_len=128, prompt_lens=(64, 64))
     check(max(widths) <= 96, f"a re-prefill was {max(widths)} wide")
@@ -944,7 +1001,7 @@ def main() -> int:
           f"serving launched linear_scan {pre_l} times in its prefills and "
           f"{dec_l} times in decode, not {cfg.n_layers} and 0")
     # bf16 rounding flips avalanche through the 24 layers (a 1e-6 change in
-    # the scan moves the last logits by ~2%: phase_scan_plain_route), and at
+    # the scan moves the last logits by ~2%: phase_plain_route), and at
     # S=128 the chunked form clamps log_w at -60/c = -0.47 where the
     # per-token step does not (the reference's own semantics, ROADMAP queue
     # 3): bf16 at S=128 is held to 0.2, twice its reading of 0.096 on an
@@ -958,7 +1015,7 @@ def main() -> int:
     params32 = f32(params)
     phase_prefill_vs_decode(cfg32, params32, device, S=48, rel_tol=1e-3)
     del params32
-    profile_llm(cfg, params, device)
+    profile_llm(cfg, params, device, "linear_scan")
     del params
     torch.cuda.empty_cache()
     records.append(scan_record(device, scan_launches, scan_abs, name))

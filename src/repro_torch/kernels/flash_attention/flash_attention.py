@@ -2,10 +2,14 @@
 hand-written CUDA kernel for Hopper.
 
 ``flash_attention`` replaces the JAX package's Pallas ``flash_attention``
-(``src/repro/kernels/flash_attention/flash_attention.py:78``).  Its kernel
+(``src/repro/kernels/flash_attention/flash_attention.py:78``).  Its source
 (``csrc/flash_attention.cu``) is compiled with ``nvcc`` for ``sm_90a`` at
 first use into ``build/repro_torch/`` and bound with ``ctypes``; the source
-note says what bounds it.  CUDA tensors launch the kernel, counted in
+note says what bounds it.  It holds two kernels, and (dtype, D) alone picks
+one: bfloat16 at D = 64 or 128 runs on the tensor cores (``wgmma`` fed by
+TMA, 128-row q tiles, K/V tiles of ``WGMMA_TILES``); float32, and bfloat16
+at D = 16 or 32 (only the ``.reduced()`` configs), run the float32 SIMT
+kernel (``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
 ``flash_attention.launches``; CPU tensors take the plain version,
 ``attention_ref``.  Anything the kernel does not take raises, on either
 device: there is no fallback from the card.
@@ -30,8 +34,21 @@ SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64, 128)
-TILES = ((64, 64), (128, 64))   # (blk_q, blk_k) the source is compiled for
+WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these runs the wgmma kernel
+# (blk_q, blk_k) each kernel is compiled for; the first is the default
+# (for the wgmma kernel, BK = 128 measured faster than 64 on the H100: the
+# PERF.md kernel table)
+SIMT_TILES = ((64, 64), (128, 64))
+WGMMA_TILES = ((128, 128), (128, 64))
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def tiles(dtype: torch.dtype, D: int) -> tuple[tuple[int, int], ...]:
+    """The tiles of the kernel that (dtype, D) runs; the first is the
+    default."""
+    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        return WGMMA_TILES
+    return SIMT_TILES
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +61,13 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, blk_q: int, blk_k: int) -> None:
+def _check(q, k, v, blk_q: int | None,
+           blk_k: int | None) -> tuple[int, int]:
+    """Raises on what the kernel does not take; returns the tile, the
+    default of ``tiles(dtype, D)`` where ``blk_q`` or ``blk_k`` is None.
+    The wgmma kernel (bfloat16 at D = 64, 128) also needs 16-byte aligned
+    CUDA tensors for its TMA loads; bfloat16 at D = 16, 32 stays on the
+    SIMT kernel."""
     if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes torch tensors")
     if not (q.device == k.device == v.device):
@@ -68,9 +91,12 @@ def _check(q, k, v, blk_q: int, blk_k: int) -> None:
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: Hq={Hq} is not a multiple of "
                          f"Hkv={Hkv}")
-    if (blk_q, blk_k) not in TILES:
+    allowed = tiles(q.dtype, D)
+    blk_q = allowed[0][0] if blk_q is None else blk_q
+    blk_k = allowed[0][1] if blk_k is None else blk_k
+    if (blk_q, blk_k) not in allowed:
         raise ValueError(f"flash_attention: tile ({blk_q}, {blk_k}) not in "
-                         f"{TILES}")
+                         f"{allowed} for {q.dtype} at head dim {D}")
     if Sq % blk_q or Sk % blk_k:
         raise ValueError(f"flash_attention: Sq={Sq} and Sk={Sk} must be "
                          f"multiples of the tiles ({blk_q}, {blk_k})")
@@ -80,16 +106,34 @@ def _check(q, k, v, blk_q: int, blk_k: int) -> None:
         raise RuntimeError("flash_attention has no backward kernel yet: "
                            "call it under torch.no_grad() or on inputs "
                            "that do not require grad")
+    if q.is_cuda and allowed is WGMMA_TILES and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the wgmma kernel's TMA loads "
+                         "need 16-byte aligned tensors")
+    return blk_q, blk_k
+
+
+def _launch_error(rc: int) -> str:
+    """The C launcher's return code in words (``csrc``'s ERR_*)."""
+    if rc == -1:
+        return "no kernel compiled for this head dim, tile and dtype"
+    if rc == -2:
+        return "libcuda.so.1 has no cuTensorMapEncodeTiled"
+    if rc >= 2000:
+        return f"cuTensorMapEncodeTiled refused a tensor map (CUresult " \
+               f"{rc - 2000})"
+    return f"CUDA error {rc}"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, blk_q: int = 64,
-                    blk_k: int = 64) -> torch.Tensor:
+                    causal: bool = True, blk_q: int | None = None,
+                    blk_k: int | None = None) -> torch.Tensor:
     """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) with Hq % Hkv == 0 ->
     (B, Sq, Hq, D) in q's dtype.  float32 or bfloat16, D in 16/32/64/128,
-    Sq and Sk multiples of the (blk_q, blk_k) tile, contiguous tensors on
-    one device."""
-    _check(q, k, v, blk_q, blk_k)
+    Sq and Sk multiples of the (blk_q, blk_k) tile, one of
+    ``tiles(dtype, D)`` (its first by default), contiguous tensors on one
+    device."""
+    blk_q, blk_k = _check(q, k, v, blk_q, blk_k)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -107,8 +151,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 int(causal), blk_q, blk_k, float(np.float32(D ** -0.5)),
                 stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{_launch_error(rc)}")
     flash_attention.launches += 1
     return out
 

@@ -19,6 +19,8 @@ from repro_torch.devices import resolve_device  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    tiles)
 from repro_torch.kernels.linear_scan import (  # noqa: E402
     linear_scan, linear_scan_ref)
 from repro_torch.kernels.maestro_eval import (  # noqa: E402
@@ -154,13 +156,28 @@ def no_tf32():
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 def test_flash_kernel_matches_plain(cuda, no_tf32, shape, dtype):
+    """Every tile of the kernel (dtype, D) takes: bf16 at D = 64, 128 is
+    the wgmma kernel at BK = 64 and 128, float32 the SIMT kernel."""
     *dims, causal = shape
     q, k, v = _qkv(*dims, dtype, cuda)
-    got = flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal).float()
     tol = FLASH_TOL[dtype]
+    for blk_q, blk_k in tiles(dtype, dims[-1]):
+        got = flash_attention(q, k, v, causal=causal, blk_q=blk_q,
+                              blk_k=blk_k)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+def test_flash_kernel_matches_plain_at_llama3_shape(cuda, no_tf32):
+    """llama3-8b's attention: S = 2048, 32 query heads over 8 KV heads,
+    D = 128, bf16, causal (B = 1)."""
+    q, k, v = _qkv(1, 2048, 2048, 32, 8, 128, torch.bfloat16, cuda)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(),
-                               attention_ref(q, k, v, causal=causal).float(),
+                               attention_ref(q, k, v, causal=True).float(),
                                rtol=tol, atol=tol)
 
 
@@ -169,6 +186,20 @@ def test_flash_kernel_independent_of_tile(cuda):
     a = flash_attention(q, k, v, blk_q=64, blk_k=64)
     b = flash_attention(q, k, v, blk_q=128, blk_k=64)
     torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_wgmma_kernel_independent_of_tile(cuda, shape):
+    """BK = 64 and 128 round P to bf16 against other running maxima; the
+    outputs agree within one bf16 ulp at the scale of each output row (the
+    D values of one query and head)."""
+    *dims, causal = shape
+    q, k, v = _qkv(*dims, torch.bfloat16, cuda, seed=1)
+    a, b = (flash_attention(q, k, v, causal=causal, blk_q=128,
+                            blk_k=bk).float() for bk in (64, 128))
+    top = torch.maximum(a.abs(), b.abs()).amax(-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp(min=1e-30))) - 7)
+    assert bool(((a - b).abs() <= ulp).all())
 
 
 def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
@@ -187,6 +218,11 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
         flash_attention(q96, k96, v96)
     with pytest.raises(ValueError, match="device"):
         flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="aligned"):  # TMA's 16 bytes
+        shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+        flash_attention(shifted[1:].view(q.shape), k, v)
+    with pytest.raises(ValueError, match="tile"):  # a SIMT tile, in bf16
+        flash_attention(q, k, v, blk_q=64, blk_k=64)
     with pytest.raises(RuntimeError, match="backward"):
         flash_attention(q.requires_grad_(True), k, v)
     assert flash_attention.launches == before + 1
