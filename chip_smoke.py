@@ -47,18 +47,24 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    timed as ``library_ms`` (the port never calls it);
 9. ``linear_scan`` against its plain version (``linear_scan_ref``) with TF32
    off: the shapes of ``tests/test_kernels.py`` in float32 (1e-3) and bf16
-   (5e-2), an odd chunk (T = c = 37) with a carried state, and two full-size
+   (5e-2), an odd chunk (T = c = 37) with a carried state, and full-size
    shapes in float32: rwkv6-1.6b's (B=2, T=2048, H=32, K=V=64, c=256, u,
-   pre-update) and zamba2-7b's Mamba-2 scan (B=1, T=2048, H=112, K=V=64,
+   pre-update), ``HANDOFF_SCAN`` (B=2, T=2048, H=8, c=64: 32 chunks with a
+   carried state and a weak decay, so the chunk-to-chunk hand-off carries
+   most of o) and zamba2-7b's Mamba-2 scan (B=1, T=2048, H=112, K=V=64,
    c=256, post-update), and rwkv6's serving shapes, with u and float32
    inputs as the prefill gives them: B=4 at c = T = 64 and 96, B=1 at
    c = T = 127 (also with a carried state); o and the final state are both
-   checked;
+   checked; at rwkv6's shape and ``HANDOFF_SCAN`` the kernel is also held
+   within max(1e-6, 2x the plain version's own) rel L2 of a float64 scan;
 10. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, d_ff 7168,
    vocab 65536) with random weights drawn on the card from seed 0:
    ``loss_fn`` at B=2, S=2048 (finite; 24 launches), timed; the same
-   forward with ``scan_op`` forced onto the plain version (loss within
-   1e-3 relative, argmax of the last logits equal);
+   forward with ``scan_op`` forced onto the plain version, in bf16 (loss
+   within 1e-3 relative; the last logits' rel L2, argmaxes and top-2 gaps
+   printed, the argmax not required: bf16 rounding flips decide it) and in
+   float32 (loss within 1e-4, last logits within 1e-3 rel L2, argmax
+   equal);
 11. rwkv6-1.6b serving: ``ServeEngine`` with 4 slots answers 6 requests of
    64-token prompts x 32 new tokens (every re-prefill at most 96 wide; 24
    launches per prefill, 0 per decode step); prefill-then-decode against
@@ -116,6 +122,12 @@ SCAN_SHAPES = [  # tests/test_kernels.py:57-67, (B, T, H, K, V, post, u, chunk)
 SCAN_ODD = (2, 37, 2, 16, 24, False, True, 64)     # c = T = 37, with a state
 RWKV_SCAN = (2, 2048, 32, 64, 64, False, True, 256)     # rwkv6-1.6b loss_fn
 MAMBA_SCAN = (1, 2048, 112, 64, 64, True, False, 256)   # zamba2-7b's Mamba-2
+# 32 chunks of 64 with a carried state0 and a weak decay (log_w * 0.01): the
+# state handed from chunk to chunk carries most of o. At RWKV_SCAN every
+# decay is clamped to -60/256, so the hand-off decays by e^-60 a chunk and
+# a broken one would pass unseen there.
+HANDOFF_SCAN = (2, 2048, 8, 64, 64, False, True, 64)
+WEAK_DECAY = 0.01
 # rwkv6-1.6b serving: the first prefill (c = T = 64), the widest re-prefill
 # (96: a padded second 64-row query tile) and prefill-vs-decode's 127
 SERVE_SCANS = [(4, 64, 32, 64, 64, False, True, 256),
@@ -760,37 +772,75 @@ def flash_record(device, launches: int, max_abs_err: float,
 # the RWKV-6 path: linear_scan, rwkv6-1.6b forward and serving
 # ----------------------------------------------------------------------
 
-def scan_inputs(shape, dtype, device, seed: int = 0, state: bool = False):
-    """r, k, v ~ N(0, 1) in ``dtype``; log_w = -|N(0, 1)| * 0.2 (as
-    ``tests/test_kernels.py`` draws it) and u ~ N(0, 1) in float32; state0
-    N(0, 1) or zeros."""
+def scan_inputs(shape, dtype, device, seed: int = 0, state: bool = False,
+                decay: float = 0.2):
+    """r, k, v ~ N(0, 1) in ``dtype``; log_w = -|N(0, 1)| * ``decay`` (0.2
+    as ``tests/test_kernels.py`` draws it) and u ~ N(0, 1) in float32;
+    state0 N(0, 1) or zeros."""
     B, T, H, K, V, _, use_u, _ = shape
     g = torch.Generator(device=device).manual_seed(seed)
 
     def n(*s):
         return torch.randn(s, generator=g, device=device)
     r, k, v = (n(B, T, H, d).to(dtype) for d in (K, K, V))
-    lw = -n(B, T, H, K).abs() * 0.2
+    lw = -n(B, T, H, K).abs() * decay
     u = n(H, K) if use_u else None
     s0 = n(B, H, K, V) if state else torch.zeros(B, H, K, V, device=device)
     return r, k, v, lw, u, s0
 
 
+def scan_f64(r, k, v, log_w, u, state0, chunk: int, post: bool):
+    """``linear_scan_ref``'s chunked algebra (``models/ssm.py``
+    ``chunked_linear_attn``) in float64, on the inputs cast to float64; the
+    clamp at the float32 -60/c the kernel and the plain version use."""
+    r, k, v, lw, s = (t.double() for t in (r, k, v, log_w, state0))
+    T = r.shape[1]
+    c = min(chunk, T)
+    lw = lw.clamp(float(np.float32(-60.0 / c)), 0.0)
+    idx = torch.arange(c, device=r.device)
+    tri = (idx[:, None] >= idx[None, :]) if post else (
+        idx[:, None] > idx[None, :])
+    outs = []
+    for n in range(T // c):
+        sl = slice(n * c, (n + 1) * c)
+        rb, kb, vb, lwb = r[:, sl], k[:, sl], v[:, sl], lw[:, sl]
+        P = torch.cumsum(lwb, dim=1)
+        q_eff = rb * torch.exp(P if post else P - lwb)
+        A = torch.einsum("bihk,bjhk->bhij", q_eff, kb * torch.exp(-P)) * tri
+        if u is not None:
+            A = A + torch.diag_embed(torch.einsum(
+                "bchk,hk,bchk->bch", rb, u.double(), kb).transpose(1, 2))
+        outs.append(torch.einsum("bchk,bhkv->bchv", q_eff, s)
+                    + torch.einsum("bhij,bjhv->bihv", A, vb))
+        s = s * torch.exp(P[:, -1])[..., None] + torch.einsum(
+            "bchk,bchv->bhkv", kb * torch.exp(P[:, -1:] - P), vb)
+    return torch.cat(outs, dim=1), s
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want).norm() / want.norm())
+
+
 def phase_scan_vs_plain(device) -> float:
     """The kernel against ``linear_scan_ref`` on the same inputs, o and the
-    final state; returns the largest absolute error over all shapes."""
+    final state; then both against the float64 scan at rwkv6's shape and
+    at ``HANDOFF_SCAN``. Returns the largest absolute error against the
+    plain version over all shapes."""
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
     worst = 0.0
     cases = [(s, dt, False) for dt in (torch.float32, torch.bfloat16)
              for s in SCAN_SHAPES] + [
         (SCAN_ODD, torch.float32, True), (SCAN_ODD, torch.bfloat16, True),
         (RWKV_SCAN, torch.float32, False),
+        (HANDOFF_SCAN, torch.float32, True),
         (MAMBA_SCAN, torch.float32, False)] + [
         (s, torch.float32, False) for s in SERVE_SCANS] + [
         (SERVE_SCANS[-1], torch.float32, True)]
     for shape, dt, state in cases:
         *_, post, _, chunk = shape
-        r, k, v, lw, u, s0 = scan_inputs(shape, dt, device, state=state)
+        decay = WEAK_DECAY if shape == HANDOFF_SCAN else 0.2
+        r, k, v, lw, u, s0 = scan_inputs(shape, dt, device, state=state,
+                                         decay=decay)
         o, s = linear_scan(r, k, v, lw, u, s0, chunk=chunk, post_update=post)
         sync(device)
         want_o, want_s = linear_scan_ref(r, k, v, lw, u=u, state0=s0,
@@ -812,6 +862,31 @@ def phase_scan_vs_plain(device) -> float:
                 f"{bad}")
             check(bad == 0, f"linear_scan {shape} {dt} {name}: {bad} "
                   f"elements beyond {tol}")
+        if shape in (RWKV_SCAN, HANDOFF_SCAN):
+            # float32 against float64: the kernel within twice the plain
+            # version's own error (1e-6 at least), on o and the state
+            exact_o, exact_s = scan_f64(r, k, v, lw, u, s0, chunk, post)
+            if shape == HANDOFF_SCAN:
+                # each chunk alone, from a zero state: o less that is what
+                # the hand-off carries in
+                B, T, H, K, V = shape[:5]
+                alone = scan_f64(*(t.reshape(B * T // chunk, chunk, H, -1)
+                                   for t in (r, k, v, lw)), u,
+                                 torch.zeros(B * T // chunk, H, K, V,
+                                             device=device), chunk, post)[0]
+                carried = exact_o - alone.reshape(exact_o.shape)
+                share = float(carried.norm() / exact_o.norm())
+                log(f"[scan-vs-f64] {shape}: the handed-off state's share "
+                    f"of o, rel L2 {share:.3g}")
+            for name, got, plain, exact in (("o", o, want_o, exact_o),
+                                            ("state", s, want_s, exact_s)):
+                e_k, e_p = rel_l2(got, exact), rel_l2(plain, exact)
+                lim = max(1e-6, 2 * e_p)
+                log(f"[scan-vs-f64] {shape} {name}: kernel rel L2 err "
+                    f"{e_k:.3g}, plain {e_p:.3g} (limit {lim:.3g})")
+                check(e_k <= lim, f"linear_scan {shape} {name}: {e_k:.3g} "
+                      f"rel L2 from the float64 scan, above {lim:.3g}")
+            del exact_o, exact_s
         del r, k, v, lw, u, s0, o, s, want_o, want_s
     return worst
 
@@ -821,13 +896,13 @@ def scan_work(shape) -> tuple[int, int, int]:
     ``shape`` with float32 inputs.  Least: the same clamped recurrence run
     token by token, per (b, t, h) exp(log_w) (K), S = w*S + k v^T (3KV)
     and r.S (2KV), with the bonus r.(u*k) v (3K + 2V) when u is given.
-    Chunked, from ``csrc/linear_scan.cu``'s arithmetic: per (b, h, chunk)
-    the inter term q_eff S (2cKV), A over the lower triangle with its
-    diagonal (K c(c+1)), A v (V c(c+1)), the state update (2cKV + KV) and
-    the elementwise work (cumsum, two exps, the factors: 6cK; the bonus:
-    3cK; exp(P_last): K); the kernel does more (whole diagonal tiles, A
-    once per 32-column slice of V).  Bytes: r, k, log_w, v read once, o
-    written once, u, state0 read and the state written."""
+    Chunked, the Pallas kernel's form at chunk c: per (b, h, chunk) the
+    inter term q_eff S (2cKV), A over the lower triangle with its diagonal
+    (K c(c+1)), A v (V c(c+1)), the state update (2cKV + KV) and the
+    elementwise work (cumsum, two exps, the factors: 6cK; the bonus: 3cK;
+    exp(P_last): K); ``csrc/linear_scan.cu`` runs the same form on tiles
+    of up to 64 rows (``scan_passes``).  Bytes: r, k, log_w, v read once,
+    o written once, u, state0 read and the state written."""
     B, T, H, K, V, _, use_u, c = shape
     least = B * T * H * (5 * K * V + K + ((3 * K + 2 * V) if use_u else 0))
     tri = c * (c + 1)
@@ -839,10 +914,29 @@ def scan_work(shape) -> tuple[int, int, int]:
     return least, chunked, nbytes
 
 
+def scan_passes(shape) -> list[tuple[str, int, int]]:
+    """(name, blocks, float32 products) of each of the kernel's three
+    passes at ``shape``, per tile of n <= 64 rows (``T/c * ceil(c/64)``
+    tiles, none across chunks): the state pass 2nKV, the hand-off 2KV, the
+    output pass 2nKV + (K + V) n(n+1)."""
+    B, T, H, K, V, _, _, c = shape
+    nvs, nq = -(-V // 64), -(-c // 64)
+    rows = [min(64, c - 64 * t) for t in range(nq)] * (T // c)
+    bh = B * H
+    return [("state", bh * len(rows) * nvs,
+             bh * sum(2 * n * K * V for n in rows)),
+            ("hand-off", bh * -(-K * V // 256), bh * len(rows) * 2 * K * V),
+            ("output", bh * len(rows) * nvs,
+             bh * sum(2 * n * K * V + (K + V) * n * (n + 1) for n in rows))]
+
+
 def scan_record(device, launches: int, max_abs_err: float,
                 name: str) -> dict:
-    """Kernel and plain version at rwkv6-1.6b's shape, and the bound."""
+    """Kernel (and each of its passes) and plain version at rwkv6-1.6b's
+    shape, and the bound."""
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    from repro_torch.kernels.linear_scan.linear_scan import (_library,
+                                                             launch_args)
     *_, post, _, chunk = RWKV_SCAN
     r, k, v, lw, u, s0 = scan_inputs(RWKV_SCAN, torch.float32, device)
     ms = time_ms(lambda: linear_scan(r, k, v, lw, u, s0, chunk=chunk,
@@ -859,11 +953,23 @@ def scan_record(device, launches: int, max_abs_err: float,
         f"at 67 TFLOP/s float32; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} "
         f"MB); the chunked form's {chunked / 1e9:.6g} GFLOP would take "
         f"{chunked / PEAK_FP32 * 1e3:.4f} ms ({chunked / ms / 1e9:.6g} "
-        f"TFLOP/s done); launches on the main path {launches}")
+        f"TFLOP/s done); {max(ops_ms, bytes_ms) / ms:.4f} of the bound; "
+        f"launches on the main path {launches}")
+    # each pass alone, on the scratch the whole scan left
+    _, _, args, keep = launch_args(r, k, v, lw, u, s0, chunk, post)
+    lib = _library()
+    for which, (pname, blocks, pflops) in enumerate(scan_passes(RWKV_SCAN)):
+        p_ms = time_ms(lambda: lib.linear_scan_pass(which, *args), 20)
+        log(f"[kernel] linear_scan {pname} pass: {p_ms:.4f} ms in {blocks} "
+            f"blocks of 256 threads, {pflops / 1e9:.6g} GFLOP of products, "
+            f"{pflops / p_ms / 1e6:.6g} GFLOP/s")
+    del keep
     return {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/linear_scan.py:84",
+        "design": "float32 SIMT: state pass, tile-to-tile hand-off, output "
+                  "pass, per tile of up to 64 rows",
         "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -871,14 +977,22 @@ def scan_record(device, launches: int, max_abs_err: float,
     }
 
 
+def top2_gap(logits: torch.Tensor) -> list[float]:
+    """Per row, the largest logit less the second largest."""
+    top = logits.topk(2, dim=-1).values
+    return [float(g) for g in top[:, 0] - top[:, 1]]
+
+
 def phase_plain_route(cfg, params, device, module, attr: str, kernel, plain,
                       B: int = 2, S: int = 2048, rel_tol: float = 1e-3,
+                      l2_tol: float | None = None,
                       need_argmax: bool = True) -> None:
     """The forward on the card with ``module.attr`` (the kernel's wrapper
     as the model calls it) forced onto the plain version ``plain`` (here
     only: the library has no such switch) against the kernel route: the
     loss within ``rel_tol`` relative; the last logits' relative L2 error
-    printed and, with ``need_argmax``, their argmax equal."""
+    (held to ``l2_tol`` where given), both routes' argmaxes and top-2 gaps
+    printed and, with ``need_argmax``, the argmaxes equal."""
     from repro_torch.models import registry, transformer
     batch = llm_batch(cfg, device, B, S)
     tokens = {"tokens": batch["tokens"]}
@@ -902,14 +1016,19 @@ def phase_plain_route(cfg, params, device, module, attr: str, kernel, plain,
               "kernel")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     l2 = float((last_k - last_p).norm() / last_p.norm())
-    same = bool((last_k.argmax(-1) == last_p.argmax(-1)).all())
-    log(f"[plain-route] {cfg.name} loss_fn B={B} S={S} with {attr} -> "
-        f"{plain.__name__}: kernel route loss {loss_k:.6g}, plain route "
-        f"{loss_p:.6g}, rel err {rel:.3g} (limit {rel_tol}); last logits "
-        f"rel L2 err {l2:.3g}, argmax equal {same}"
-        f"{'' if need_argmax else ' (not required)'}")
-    check(rel <= rel_tol and (same or not need_argmax), "the kernel route "
-          "disagrees with the plain route")
+    arg_k, arg_p = last_k.argmax(-1).tolist(), last_p.argmax(-1).tolist()
+    same = arg_k == arg_p
+    log(f"[plain-route] {cfg.name} {str(cfg.dtype)[6:]} loss_fn B={B} "
+        f"S={S} with {attr} -> {plain.__name__}: kernel route loss "
+        f"{loss_k:.6g}, plain route {loss_p:.6g}, rel err {rel:.3g} (limit "
+        f"{rel_tol}); last logits rel L2 err {l2:.3g}"
+        f"{'' if l2_tol is None else f' (limit {l2_tol})'}; argmax kernel "
+        f"{arg_k}, plain {arg_p}, equal {same}"
+        f"{'' if need_argmax else ' (not required)'}; top-2 gap kernel "
+        f"{top2_gap(last_k)}, plain {top2_gap(last_p)}")
+    check(rel <= rel_tol and (l2_tol is None or l2 <= l2_tol)
+          and (same or not need_argmax), "the kernel route disagrees with "
+          "the plain route")
 
 
 def main() -> int:
@@ -992,8 +1111,24 @@ def main() -> int:
     check(bool(np.isfinite(loss)), f"rwkv6 loss {loss} is not finite")
     check(scan_launches == cfg.n_layers, f"loss_fn launched linear_scan "
           f"{scan_launches} times, not once per layer ({cfg.n_layers})")
+    # bf16: the loss is held to 1e-3, the argmax is not. bf16 rounding
+    # flips avalanche through the 24 layers, so any two right scans give
+    # last logits ~0.045-0.053 rel L2 apart (float64 vs plain 0.0449 on an
+    # H100 80GB HBM3 at 700 W): on seed 0 the top-2 gap is 0.03125, one
+    # bf16 step, and the plain route's argmax (40041) is not a float64
+    # scan's (59296). The float32 forward below, where no bf16 rounding
+    # flips, holds the argmax, and the logits to 1e-3.
     phase_plain_route(cfg, params, device, scan_ops, "scan_op", linear_scan,
-                      linear_scan_ref)
+                      linear_scan_ref, need_argmax=False)
+    cfg32 = cfg.replace(dtype=torch.float32)
+
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    params32 = f32(params)
+    phase_plain_route(cfg32, params32, device, scan_ops, "scan_op",
+                      linear_scan, linear_scan_ref, rel_tol=1e-4,
+                      l2_tol=1e-3)
     _, pre_l, dec_l, widths = phase_serving(
         cfg, params, device, linear_scan, max_len=128, prompt_lens=(64, 64))
     check(max(widths) <= 96, f"a re-prefill was {max(widths)} wide")
@@ -1008,11 +1143,6 @@ def main() -> int:
     # H100 80GB HBM3 at 700 W; 1e-3 is held in float32 at S=48, where
     # -60/47 lies below every decay -exp(w) ~ -1
     phase_prefill_vs_decode(cfg, params, device, rel_tol=0.2)
-    cfg32 = cfg.replace(dtype=torch.float32)
-    def f32(tree):
-        return {k: f32(v) if isinstance(v, dict) else v.float()
-                for k, v in tree.items()}
-    params32 = f32(params)
     phase_prefill_vs_decode(cfg32, params32, device, S=48, rel_tol=1e-3)
     del params32
     profile_llm(cfg, params, device, "linear_scan")

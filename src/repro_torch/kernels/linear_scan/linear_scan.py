@@ -3,10 +3,12 @@ of a hand-written CUDA kernel for Hopper.
 
 ``linear_scan`` replaces the JAX package's Pallas ``linear_scan``
 (``src/repro/kernels/linear_scan/linear_scan.py:84``).  Its kernel
-(``csrc/linear_scan.cu``) is compiled with ``nvcc`` for ``sm_90a`` at first
-use into ``build/repro_torch/`` and bound with ``ctypes``; the source note
-says what bounds it.  CUDA tensors launch the kernel, counted in
-``linear_scan.launches``; CPU tensors take the plain version,
+(``csrc/linear_scan.cu``: a state pass, the tile-to-tile hand-off and an
+output pass, launched back to back) is compiled with ``nvcc`` for
+``sm_90a`` at first use into ``build/repro_torch/`` and bound with
+``ctypes``; the source note says what bounds it.  CUDA tensors launch the
+kernel, counted once a call in ``linear_scan.launches``; CPU tensors take
+the plain version,
 ``linear_scan_ref``, with o returned in r's dtype as on the card.  Strided
 inputs are copied to contiguous ones.  Anything else the kernel does not
 take raises: there is no fallback from the card.
@@ -32,16 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_K = 64        # key width the kernel's shared memory is sized for
-MAX_CHUNK = 256   # longest chunk the kernel's shared memory holds
+MAX_CHUNK = 256   # longest chunk the kernel is written and tested for
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SRC, NVCC_FLAGS)
-    fn = lib.linear_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    args = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+    lib.linear_scan_launch.argtypes = args
+    lib.linear_scan_pass.argtypes = [ctypes.c_int] + args
+    for fn in (lib.linear_scan_launch, lib.linear_scan_pass):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -105,6 +109,30 @@ def linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"linear_scan: the kernel takes 1 <= K <= {MAX_K}, "
                          f"V >= 1 and chunks <= {MAX_CHUNK}, got K={K}, "
                          f"V={V}, chunk={c}")
+    o, state, args, _keep = launch_args(r, k, v, log_w, u, state0, c,
+                                        post_update)
+    if B * H == 0:
+        return o, state
+    with torch.cuda.device(r.device):
+        rc = _library().linear_scan_launch(*args)
+    if rc != 0:
+        raise RuntimeError(f"linear_scan kernel launch failed: CUDA error "
+                           f"{rc}")
+    linear_scan.launches += 1
+    return o, state
+
+
+def launch_args(r, k, v, log_w, u, state0, c: int, post_update: bool):
+    """(o, state, the C arguments of ``linear_scan_launch``, the tensors
+    they point at) for checked CUDA inputs and chunk ``c``: the outputs and
+    the scratch of the passes (each tile's state and decay, B H nt K (V +
+    1) floats for the nt = T/c ceil(c/64) tiles of up to 64 rows)
+    allocated with ``torch.empty``, on the current stream.  Hold the last
+    item until the launch is enqueued.
+    ``linear_scan_pass(which, *args)`` runs one pass (0 state, 1 hand-off,
+    2 output)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
     dev = r.device
     r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
     lw = log_w.to(torch.float32).contiguous()  # the Pallas kernel's f32 copy
@@ -113,21 +141,16 @@ def linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if state0 is None else state0.to(torch.float32).contiguous()
     o = torch.empty((B, T, H, V), dtype=r.dtype, device=dev)
     state = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
-    if B * H == 0:
-        return o, state
-    fn = _library().linear_scan_launch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-                None if uf is None else uf.data_ptr(), s0.data_ptr(),
-                o.data_ptr(), state.data_ptr(), B, T, H, K, V, c,
-                int(r.dtype == torch.bfloat16), int(post_update),
-                int(uf is not None), float(np.float32(-60.0 / c)), stream)
-    if rc != 0:
-        raise RuntimeError(f"linear_scan kernel launch failed: CUDA error "
-                           f"{rc}")
-    linear_scan.launches += 1
-    return o, state
+    nt = T // c * -(-c // 64)  # tiles of up to 64 rows, none across chunks
+    scratch = torch.empty(B * H * nt * K * (V + 1), dtype=torch.float32,
+                          device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            None if uf is None else uf.data_ptr(), s0.data_ptr(),
+            o.data_ptr(), state.data_ptr(), scratch.data_ptr(), B, T, H, K,
+            V, c, int(r.dtype == torch.bfloat16), int(post_update),
+            int(uf is not None), float(np.float32(-60.0 / c)), stream)
+    return o, state, args, (r, k, v, lw, uf, s0, scratch)
 
 
 linear_scan.launches = 0  # kernel launches since the last reset

@@ -237,20 +237,27 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
 SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 SCAN_SHAPES = [  # (B, T, H, K, V, post, use_u, chunk)
     (2, 128, 2, 32, 32, False, True, 32),    # RWKV-6 shape of test_kernels
-    (2, 128, 2, 16, 48, True, False, 64),    # K != V, two V slices
+    (2, 128, 2, 16, 48, True, False, 64),    # K != V, a partial V slice
     (2, 37, 2, 16, 24, False, True, 64),     # odd c = T = 37
     (1, 512, 1, 64, 64, False, True, 256),   # the model's chunk, clamped
+    (1, 64, 2, 64, 64, False, True, 64),     # a single chunk, T = c = 64
+    (2, 2048, 2, 64, 64, False, True, 64),   # 32 chunks handed off, weak decay
+    (2, 128, 2, 32, 96, True, False, 64),    # post-update, V = 96: two slices
+    (2, 256, 2, 16, 64, False, True, 128),   # K = 16, two query tiles a chunk
 ]
+# shapes drawn with a weak decay (log_w * 0.01) so that the state handed
+# from chunk to chunk carries most of o, as chip_smoke.py's HANDOFF_SCAN
+WEAK_DECAY = {(2, 2048, 2, 64, 64, False, True, 64)}
 
 
-def _scan_inputs(B, T, H, K, V, use_u, dtype, device, seed=0):
+def _scan_inputs(B, T, H, K, V, use_u, dtype, device, seed=0, decay=0.5):
     g = torch.Generator(device=device).manual_seed(seed)
 
     def n(*shape):
         return torch.randn(shape, generator=g, device=device)
     r, k, v = n(B, T, H, K).to(dtype), n(B, T, H, K).to(dtype), \
         n(B, T, H, V).to(dtype)
-    lw = -n(B, T, H, K).abs() * 0.5
+    lw = -n(B, T, H, K).abs() * decay
     u = n(H, K) if use_u else None
     return r, k, v, lw, u, n(B, H, K, V)
 
@@ -260,7 +267,9 @@ def _scan_inputs(B, T, H, K, V, use_u, dtype, device, seed=0):
 @pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
 def test_linear_scan_kernel_matches_plain(cuda, no_tf32, shape, dtype):
     *dims, post, use_u, chunk = shape
-    r, k, v, lw, u, s0 = _scan_inputs(*dims, use_u, dtype, cuda)
+    r, k, v, lw, u, s0 = _scan_inputs(
+        *dims, use_u, dtype, cuda,
+        decay=0.01 if shape in WEAK_DECAY else 0.5)
     o, s = linear_scan(r, k, v, lw, u, s0, chunk=chunk, post_update=post)
     torch.cuda.synchronize()
     want_o, want_s = linear_scan_ref(r, k, v, lw, u=u, state0=s0,
@@ -284,6 +293,13 @@ def test_linear_scan_counts_launches_and_rejects_bad_inputs(cuda):
     before += 1
     linear_scan(r.cpu(), k.cpu(), v.cpu(), lw.cpu())  # the plain path
     assert linear_scan.launches == before + 1
+    # three passes (state, hand-off, output), over several chunks and two
+    # 64-column slices of V: still one launch a call
+    r2, k2, v2, lw2, u2, s2 = _scan_inputs(1, 256, 2, 16, 96, True,
+                                           torch.float32, cuda)
+    linear_scan(r2, k2, v2, lw2, u2, s2, chunk=64)
+    assert linear_scan.launches == before + 2
+    before += 1
     with pytest.raises(ValueError, match="device"):
         linear_scan(r, k.cpu(), v, lw)
     with pytest.raises(ValueError, match="chunks"):

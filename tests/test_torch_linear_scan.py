@@ -106,6 +106,73 @@ def test_plain_matches_pallas_interpret_and_ref(B, T, H, K, V, post, use_u,
     _close(ps, rs, tol)
 
 
+def _two_pass(r, k, v, lw, u, s0, chunk, post, tile=64):
+    """The CUDA kernel's decomposition in float32 torch.  Each chunk of c
+    rows is cut into tiles of up to 64 rows (none across chunks, so |P| <=
+    60 in a tile); per tile, with P the cumulative clamped decay from the
+    tile's first row, its own state dS_t = sum_i (k_i exp(P_last - P_i))
+    v_i^T and decay d_t = exp(P_last) (the state pass); S_t = d_t S_{t-1}
+    + dS_t from state0 (the hand-off); then o = q_eff S_{t-1} + (A masked,
+    with the bonus on its diagonal) v within the tile (the output pass)."""
+    B, T, H, K = r.shape
+    c = min(chunk, T)
+    lw = lw.clamp(float(np.float32(-60.0 / c)), 0.0)
+    starts = [c0 + t0 for c0 in range(0, T, c) for t0 in range(0, c, tile)]
+    S, outs = s0, []
+    for t0 in starts:
+        rows = slice(t0, min(t0 + tile, t0 - t0 % c + c))
+        rt, kt, vt, lt = r[:, rows], k[:, rows], v[:, rows], lw[:, rows]
+        P = torch.cumsum(lt, dim=1)
+        Pl = P[:, -1]                                    # (B, H, K)
+        dS = torch.einsum("bihk,bihv->bhkv", kt * torch.exp(Pl[:, None] - P),
+                          vt)
+        q = rt * torch.exp(P if post else P - lt)
+        A = torch.einsum("bihk,bjhk->bhij", q, kt * torch.exp(-P))
+        idx = torch.arange(A.shape[-1])
+        A = A * (idx[:, None] >= idx[None, :] if post
+                 else idx[:, None] > idx[None, :])
+        if u is not None:
+            A = A + torch.diag_embed(torch.einsum("bihk,hk,bihk->bhi", rt, u,
+                                                  kt))
+        outs.append(torch.einsum("bihk,bhkv->bihv", q, S)
+                    + torch.einsum("bhij,bjhv->bihv", A, vt))
+        S = torch.exp(Pl)[..., None] * S + dS
+    return torch.cat(outs, dim=1), S
+
+
+# the shapes of CASES in float32, and 32 chunks of 16 with a carried state
+# and a weak decay, where the hand-off carries most of o
+SPLIT_CASES = sorted({c[:8] for c in CASES}) + [
+    (2, 512, 2, 32, 32, False, True, 16)]
+
+
+@pytest.mark.parametrize("B,T,H,K,V,post,use_u,chunk", SPLIT_CASES)
+def test_two_pass_split_matches_pallas_and_oracle(B, T, H, K, V, post, use_u,
+                                                  chunk):
+    """The kernel's split into a state pass, a hand-off and an output pass
+    per tile of up to 64 rows is the same function as the Pallas kernel
+    (interpret mode) and the JAX package's chunked_linear_attn, in float32
+    at 1e-5
+    of the output's scale (rtol 1e-5, atol 1e-5 max |want|): float32 sums
+    behind the two-sided exp(+-P) factors differ by up to 1.4e-6 of it
+    between any two summation orders here, the port's plain version
+    against the Pallas kernel included."""
+    weak = chunk == 16 and T == 512
+    arrays = _inputs(B, T, H, K, V, use_u, seed=T + K + 1,
+                     decay=0.01 if weak else 0.5 if chunk == 256 else 0.2,
+                     state=weak or T == 37)
+    (jr, jk, jv, jlw, ju, js0), t = _both(arrays, "float32")
+    o, s = _two_pass(*t, chunk, post)
+    jo, js = j_scan(jr, jk, jv, jlw, ju, js0, chunk=chunk, post_update=post,
+                    interpret=True)
+    ro, rs = jssm.chunked_linear_attn(jr, jk, jv, jlw, u=ju, state0=js0,
+                                      chunk=chunk, post_update=post)
+    for got, want in ((o, jo), (s, js), (o, ro), (s, rs)):
+        np.testing.assert_allclose(
+            _f32(got), _f32(want), rtol=1e-5,
+            atol=1e-5 * float(np.abs(_f32(want)).max()))
+
+
 @pytest.mark.parametrize("post,use_u", [(True, False), (False, True)])
 def test_chunked_matches_stepwise_recurrence(post, use_u):
     """tests/test_kernels.py::test_linear_scan_matches_stepwise_recurrence
