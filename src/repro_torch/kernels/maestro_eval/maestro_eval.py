@@ -1,12 +1,18 @@
 """The MAESTRO DSE inner loop: a hand-written CUDA kernel for Hopper and
 its plain PyTorch version.
 
-Each design point is 2 scalars (num_pes int32, noc_bw float32) and about
-60 float32 operations of closed-form evaluation over the static tables of
-``tables.py``; it writes 5 float32 features.  On an H100 that is 28 bytes of
-device memory traffic per design against ~60 operations, far below the
-card's operations-per-byte balance, so the kernel is memory-bound: its
-bound is N × 28 B over the card's memory bandwidth.
+Each design point is 2 scalars (num_pes int32, noc_bw float32) and a
+closed-form evaluation over the static tables of ``tables.py``; it writes 5
+float32 features.  That is 28 bytes of device memory traffic per design,
+and the kernel's bound is N × 28 B over the card's memory bandwidth.  What
+kept the first kernel from it was not its stores but its arithmetic, some
+500 instructions a design (the float floor divisions, int32 division by
+divisors known only at run time), one design a thread, not overlapped
+with the stores (``scripts/ablate_maestro_eval.py``).  The kernel shares
+the terms of a PE count among the consecutive designs a thread takes,
+takes each remainder from one division and one fma, exactly, divides by
+the table's constants with a multiply and a shift (``_floor_div``), and
+stores each warp's rows, staged, 16 bytes wide.
 
 ``maestro_eval`` is the kernel's wrapper (source: ``csrc/maestro_eval.cu``,
 built with ``nvcc`` at first use into ``build/repro_torch/`` at the root of
@@ -38,12 +44,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Plain PyTorch version
 # ----------------------------------------------------------------------
 
+def _floor_divide(a, b):
+    """``jnp.floor_divide`` on float tensors: remainder, subtract, divide,
+    sign correction, then ``lax.round``, which rounds half away from zero.
+    ``torch.floor_divide`` takes the same steps but rounds a half down (it
+    floors and adds one only above one half), so where (a - mod) / b lands
+    on k + 1/2, as it can for quotients in [2^22, 2^23), the two differ."""
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    div = torch.where((mod != 0) & ((b < 0) != (mod < 0)), div - 1, div)
+    t = torch.trunc(div)
+    return torch.where((div - t).abs() >= 0.5, t + torch.sign(div), t)
+
+
 def _cdiv(a, b):
+    if a.is_floating_point():
+        return _floor_divide(a + b - 1, b)
     return torch.floor_divide(a + b - 1, b)
 
 
 def _comm(v, bw, lat):
-    d = torch.floor_divide(v + bw - 1.0, bw) + lat
+    d = _floor_divide(v + bw - 1.0, bw) + lat
     return torch.where(v > 0, d, 0.0)
 
 
@@ -51,8 +72,8 @@ def closed_form_features(pes: torch.Tensor, bw: torch.Tensor,
                          T: EvalTables) -> torch.Tensor:
     """pes int32[N], bw float32[N] -> float32[N, 5].  Exactly the faithful
     engine's single-level analysis (model.py) in closed form, op for op
-    as the reference computes it (``torch.floor_divide`` on floats uses
-    the same remainder-based rule as ``jnp.floor_divide``)."""
+    as the reference computes it (floor division of floats by
+    ``jnp.floor_divide``'s rule: ``_floor_divide``)."""
     n = pes.to(torch.int32)
     f32 = torch.float32
     o, s, D = T.sp_o, T.sp_s, T.sp_D
@@ -126,15 +147,38 @@ def closed_form_features(pes: torch.Tensor, bw: torch.Tensor,
 # The CUDA kernel: build, bind, launch
 # ----------------------------------------------------------------------
 
+class _FloorDiv(ctypes.Structure):
+    """Mirror of ``FloorDiv`` in ``csrc/maestro_eval.cu``: floor(a / d) as
+    (a * magic) >> shift (``_floor_div``)."""
+    _fields_ = [("d", ctypes.c_int32), ("magic", ctypes.c_uint32),
+                ("shift", ctypes.c_uint32)]
+
+
 class _Tables(ctypes.Structure):
     """Mirror of ``MaestroTables`` in ``csrc/maestro_eval.cu`` (passed by
-    value; 17 four-byte fields, no padding)."""
-    _fields_ = [(f, ctypes.c_int32) for f in (
-        "sp_D", "sp_s", "sp_o", "conv_kind", "sp_window", "sp_stride",
-        "spatial_reduces", "o_coupled_spatial", "temporal_steps",
-        "n_cases")] + [(f, ctypes.c_float) for f in (
-            "delta_a", "delta_b", "ing_full_a", "ing_full_b", "egress_a",
-            "egress_b", "noc_latency")]
+    value; 21 four-byte fields, two ``FloorDiv`` of three among them, no
+    padding).  A layout that does not match gives wrong numbers, not a
+    crash."""
+    _fields_ = [("sp_D", ctypes.c_int32), ("sp_s", ctypes.c_int32),
+                ("o", _FloorDiv), ("conv_kind", ctypes.c_int32),
+                ("sp_window", ctypes.c_int32), ("stride", _FloorDiv)] + [
+        (f, ctypes.c_int32) for f in (
+            "spatial_reduces", "o_coupled_spatial", "temporal_steps",
+            "n_cases")] + [(f, ctypes.c_float) for f in (
+                "delta_a", "delta_b", "ing_full_a", "ing_full_b",
+                "egress_a", "egress_b", "noc_latency")]
+
+
+def _floor_div(d: int) -> _FloorDiv:
+    """The kernel's floor division by a constant ``d`` >= 1: for
+    0 <= x < 2^31, x // d == (x * magic) >> shift with shift = 31 +
+    ceil(log2 d) and magic = ceil(2^shift / d), which is below 2^32 (the
+    proof is at ``floordiv_magic`` in the source)."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"maestro_eval: the kernel divides by a table "
+                         f"constant >= 1, got {d}")
+    shift = 31 + (d - 1).bit_length()
+    return _FloorDiv(d=d, magic=-(-(1 << shift) // d), shift=shift)
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,9 +194,10 @@ def _library() -> ctypes.CDLL:
 
 def _c_tables(T: EvalTables) -> _Tables:
     return _Tables(
-        sp_D=T.sp_D, sp_s=T.sp_s, sp_o=T.sp_o,
+        sp_D=T.sp_D, sp_s=T.sp_s, o=_floor_div(T.sp_o),
         conv_kind=int(T.sp_kind == "conv"), sp_window=T.sp_window,
-        sp_stride=T.sp_stride, spatial_reduces=int(T.spatial_reduces),
+        stride=_floor_div(T.sp_stride),
+        spatial_reduces=int(T.spatial_reduces),
         o_coupled_spatial=int(T.o_coupled_spatial),
         temporal_steps=T.temporal_steps, n_cases=len(T.cases),
         delta_a=T.delta_a, delta_b=T.delta_b, ing_full_a=T.ing_full_a,

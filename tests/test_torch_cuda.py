@@ -109,6 +109,80 @@ def test_kernel_rejects_bad_inputs(cuda):
     assert maestro_eval(p[:0], b[:0], tables=T).shape == (0, 5)
 
 
+def _edge_designs():
+    """pes where ``rem - s`` goes negative, random ones, and ones where
+    n * o and (n - 1) * o wrap int32, each at bw 1, non-integer bw, and
+    bw so small that ``floordiv_f``'s quotient crosses 2^24, the edge of
+    the kernel's exact remainder, into its fmodf slow path."""
+    rng = np.random.default_rng(11)
+    pes = np.concatenate([np.arange(1, 65), rng.integers(65, 16385, 32),
+                          2 ** 30 + np.arange(8), [2 ** 24, 2 ** 31 - 1]])
+    bws = np.array([1.0, 3.5, 105.28, 0.75, 1024.0, 1e-6, 3e-6, 1e-5,
+                    3e-5, 5e-5, 7e-5, 1e-4], dtype=np.float32)
+    return (np.repeat(pes, len(bws)).astype(np.int32),
+            np.tile(bws, len(pes)))
+
+
+def _beyond_exact_domain(p, b, T) -> torch.Tensor:
+    """Designs whose ingress ``floordiv_f`` quotient (delta + bw - 1) / bw
+    is 2^24 or more: the kernel's fmodf slow path."""
+    span = T.sp_s + (p - 1) * T.sp_o  # int32, wraps as the kernel's
+    delta = T.delta_a + T.delta_b * torch.clamp(span, max=T.sp_D).float()
+    return (((delta + b) - 1.0) / b).abs() >= 2.0 ** 24
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 255, 257, 4097, 2 ** 20 + 3])
+def test_kernel_bit_equal_at_ragged_sizes(cuda, n):
+    p, b = _designs(7, cuda)
+    reps = -(-n // len(p))
+    p, b = p.repeat(reps)[:n].contiguous(), b.repeat(reps)[:n].contiguous()
+    for case in CASES:
+        T = _tables(*case)
+        got = maestro_eval(p, b, tables=T)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 5)
+        assert torch.equal(got, closed_form_features(p, b, T)), case
+
+
+def test_kernel_bit_equal_on_misaligned_slices(cuda):
+    """Contiguous slices 4 and 8 bytes past a 16-byte boundary: the kernel
+    takes them as they are."""
+    p, b = _designs(8, cuda)
+    n = len(p) - 3
+    for ps, bs in ((p[1:n + 1], b[1:n + 1]), (p[1:n + 1], b[2:n + 2]),
+                   (p[3:n + 3], b[:n])):
+        assert ps.is_contiguous() and bs.is_contiguous()
+        for case in CASES:
+            T = _tables(*case)
+            assert torch.equal(maestro_eval(ps, bs, tables=T),
+                               closed_form_features(ps, bs, T)), case
+
+
+def test_kernel_bit_equal_at_edge_inputs(cuda):
+    pes, bw = _edge_designs()
+    p, b = torch.from_numpy(pes).to(cuda), torch.from_numpy(bw).to(cuda)
+    slow = 0
+    for case in CASES:
+        T = _tables(*case)
+        got = maestro_eval(p, b, tables=T)
+        want = closed_form_features(p, b, T)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert bool(same.all()), case
+        slow += int(_beyond_exact_domain(p, b, T).sum())
+    assert 0 < slow < len(CASES) * len(p)
+
+
+def test_kernel_bit_equal_past_2_24_designs(cuda):
+    n = 2 ** 24 + 3
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = torch.randint(1, 16385, (n,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    b = torch.rand(n, generator=g, device=cuda) * 1023 + 1
+    T = _tables("early", "X-P")
+    assert torch.equal(maestro_eval(p, b, tables=T),
+                       closed_form_features(p, b, T))
+
+
 def test_default_device_is_cuda(cuda):
     assert resolve_device().type == "cuda"
     op = dnn_models.vgg16()[10]

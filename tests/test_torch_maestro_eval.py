@@ -184,3 +184,132 @@ def test_eval_tables_hashable():
     _, _, top, td = _pair("late", "C-P")
     assert isinstance(hash(build_tables(top, td)), int)
     assert isinstance(build_tables(top, td), EvalTables)
+
+
+def _edge_designs():
+    """``tests/test_torch_cuda.py::_edge_designs``: pes where ``rem - s``
+    goes negative, random ones, and ones where n * o and (n - 1) * o wrap
+    int32, each at bw 1, non-integer bw, and bw so small that the float
+    floor division's quotient crosses 2^24, the edge of the CUDA kernel's
+    exact remainder."""
+    rng = np.random.default_rng(11)
+    pes = np.concatenate([np.arange(1, 65), rng.integers(65, 16385, 32),
+                          2 ** 30 + np.arange(8), [2 ** 24, 2 ** 31 - 1]])
+    bws = np.array([1.0, 3.5, 105.28, 0.75, 1024.0, 1e-6, 3e-6, 1e-5,
+                    3e-5, 5e-5, 7e-5, 1e-4], dtype=np.float32)
+    return (np.repeat(pes, len(bws)).astype(np.int32),
+            np.tile(bws, len(pes)))
+
+
+def _against_reference(case, pes, bw):
+    """The plain version on (pes, bw) against the JAX package's oracle, bit
+    for bit (NaN as NaN): the float floor division rounds halves away from
+    zero in both (at the edge inputs ``torch.floor_divide``'s rounding of
+    halves moved runtime by ~2e-7 relative, inside the rtol of 1e-6 of the
+    tests above); and against its Pallas kernel in interpret mode, jitted
+    whole, at rtol 1e-6."""
+    jop, jd, top, td = _pair(*case)
+    jt, tt = j_build(jop, jd), build_tables(top, td)
+    got = closed_form_features(torch.from_numpy(pes), torch.from_numpy(bw),
+                               tt).numpy()
+    want = np.asarray(j_ref(pes, bw, tables=jt))
+    assert want.shape == got.shape == (len(pes), len(FEATURES))
+    same = (got.view(np.int32) == want.view(np.int32)) | (
+        np.isnan(got) & np.isnan(want))
+    assert same.all(), np.argwhere(~same)[:5]
+    krn = np.asarray(j_kernel(jnp.asarray(pes), jnp.asarray(bw), tables=jt,
+                              interpret=True))
+    np.testing.assert_allclose(got, krn, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", CASES, ids="-".join)
+def test_plain_matches_reference_at_edge_inputs(case):
+    _against_reference(case, *_edge_designs())
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 255, 257, 4097, 2 ** 20 + 3])
+def test_plain_matches_reference_at_ragged_sizes(n):
+    """The CUDA tests' sizes; the Pallas kernel pads to its 1024-design
+    block."""
+    pes, bw = _designs(4)
+    reps = -(-n // len(pes))
+    pes, bw = np.tile(pes, reps)[:n], np.tile(bw, reps)[:n]
+    for case in (CASES[1], CASES[5]):
+        _against_reference(case, pes, bw)
+
+
+def test_plain_takes_misaligned_slices():
+    """Contiguous slices 4 bytes past an aligned start, as the CUDA kernel
+    takes them, against the reference on the same values."""
+    pes, bw = _designs(5)
+    tt = build_tables(*_pair("early", "X-P")[2:])
+    p, b = torch.from_numpy(pes), torch.from_numpy(bw)
+    got = closed_form_features(p[1:], b[1:], tt)
+    torch.testing.assert_close(got, closed_form_features(
+        p[1:].clone(), b[1:].clone(), tt), rtol=0, atol=0)
+    _against_reference(("early", "X-P"), pes[1:].copy(), bw[1:].copy())
+
+
+def test_floor_div_constants_exact():
+    """The host's multiply-shift constants give x // d for every x the
+    kernel feeds them (0 <= x < 2^31; a negative dividend folds to ~x), at
+    the ends of the range and around multiples of d."""
+    from repro_torch.kernels.maestro_eval.maestro_eval import _floor_div
+    rng = np.random.default_rng(0)
+    divisors = list(range(1, 130)) + [2 ** k + j for k in range(8, 31)
+                                      for j in (-1, 0, 1) if 2 ** k + j
+                                      < 2 ** 31]
+    for d in divisors:
+        m = _floor_div(d)
+        assert m.d == d and 0 < m.magic < 2 ** 32
+        mult = rng.integers(0, (2 ** 31 - 1) // d + 1, 64) * d
+        xs = np.concatenate([np.arange(0, 300), 2 ** 31 - 1 - np.arange(300),
+                             mult, mult - 1, mult + d - 1,
+                             rng.integers(0, 2 ** 31, 256)])
+        xs = xs[(xs >= 0) & (xs < 2 ** 31)].astype(np.uint64)
+        q = (xs * np.uint64(m.magic)) >> np.uint64(m.shift)
+        np.testing.assert_array_equal(q, xs // np.uint64(d), err_msg=str(d))
+        a = -xs.astype(np.int64) - 1  # folds to x = ~a
+        np.testing.assert_array_equal(~q.astype(np.int64), a // d)
+    for bad in (0, -1, 2 ** 31):
+        with pytest.raises(ValueError):
+            _floor_div(bad)
+
+
+def _exact_fmod(a, b):
+    """``exact_fmod`` of ``csrc/maestro_eval.cu`` in numpy: one float32
+    division, a - trunc(q) * b rounded once (in float64, where the product
+    of two float32 is exact and so is the difference the source's fmaf
+    rounds), one correction; np.fmod outside the domain."""
+    with np.errstate(all="ignore"):
+        q = a / b
+        dom = (np.abs(q) < np.float32(2 ** 24)) & np.isfinite(b)
+        r = (a.astype(np.float64) - np.trunc(q).astype(np.float64)
+             * b.astype(np.float64)).astype(np.float32)
+        r = np.where(np.where(a >= 0, r < 0, r > 0),
+                     r + np.copysign(b, a), r).astype(np.float32)
+        return np.where(dom, np.copysign(r, a), np.fmod(a, b)), dom
+
+
+def test_exact_fmod_scheme_bit_equal_to_fmod():
+    """The kernel's remainder scheme bit for bit against fmod (the sign of
+    a zero included) on float32 pairs of spread exponents, on quotients
+    within 3e-8 of an integer (where RN(a / b) rounds up to the next one),
+    and across the 2^24 edge of its domain."""
+    rng = np.random.default_rng(0)
+    n = 200_000
+    b = (rng.uniform(-1, 1, n) * 2.0 ** rng.integers(-30, 40, n)).astype(
+        np.float32)
+    spread = (rng.uniform(-1, 1, n) * 2.0 ** rng.integers(-30, 40, n))
+    k = rng.integers(0, 2 ** 25, n).astype(np.float64)
+    near = b.astype(np.float64) * k * (1 + rng.uniform(-3e-8, 3e-8, n))
+    inside = 0
+    for a in (spread, near, np.round(near), -near):
+        a = a.astype(np.float32)
+        got, dom = _exact_fmod(a, b)
+        with np.errstate(all="ignore"):
+            want = np.fmod(a, b)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        inside += int(dom.sum())
+    assert 0.5 * 4 * n < inside < 4 * n
