@@ -27,25 +27,35 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    2^24-design chunk per table) through ``dse_eval``, timed with CUDA events;
    then the kernel against its plain version on every table's 2^24-design
    chunk, rtol 1e-6;
-5. ``flash_attention`` against its plain version (``attention_ref``) with
+5. the mapping search (``repro_torch.mapspace.search``, no hand kernel
+   on this path): vgg16-conv13's 72-group space (10368 mappings; pes 256,
+   bw 32, edp, top-k 8, block 1024) searched exhaustively, cold and then
+   warm, and greedily under a budget of 2048; each held against the JAX
+   package's results in ``tests/data/torch_mapsearch_fixture.json`` (values
+   and feature rows at rtol 1e-6, the same mappings evaluated, the top-k in
+   the same order but for swaps within 1e-6 ties) and against the port's
+   own search on the CPU; mappings/s end to end and steady; then one warm
+   exhaustive search under ``torch.profiler`` (kernels and host-to-device
+   copies per chunk, idle share, top device kernels and host operators);
+6. ``flash_attention`` against its plain version (``attention_ref``) with
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
    the SIMT kernel) and bf16 (2e-2, the wgmma kernel), then at the LLM
    path's shape (B=2, S=2048, 32 query heads over 8 KV heads, head dim 128,
    bf16, causal; 2e-2), each at every tile its kernel takes;
-6. llama3-8b at full width and depth (32 layers, d_model 4096, d_ff 14336,
+7. llama3-8b at full width and depth (32 layers, d_model 4096, d_ff 14336,
    vocab 128256) with random weights drawn on the card from seed 0:
    ``loss_fn`` at B=2, S=2048 (finite, near ln(vocab)), timed; the same
    forward with ``layers.flash_attention`` forced onto ``attention_ref``
    (loss within 1e-3 relative; the last logits' rel L2 printed);
-7. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
+8. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
    6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
    then prefill-then-decode against the full-sequence forward on one
    prompt; then one forward and four decode steps under ``torch.profiler``
    for the card's busy and idle time;
-8. the kernel at the LLM path's shape at each of its tiles, and the
+9. the kernel at the LLM path's shape at each of its tiles, and the
    yardstick: ``torch.nn.functional.scaled_dot_product_attention`` there,
    timed as ``library_ms`` (the port never calls it);
-9. ``linear_scan`` against its plain version (``linear_scan_ref``) with TF32
+10. ``linear_scan`` against its plain version (``linear_scan_ref``) with TF32
    off: the shapes of ``tests/test_kernels.py`` in float32 (1e-3) and bf16
    (5e-2), an odd chunk (T = c = 37) with a carried state, and full-size
    shapes in float32: rwkv6-1.6b's (B=2, T=2048, H=32, K=V=64, c=256, u,
@@ -57,7 +67,7 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    c = T = 127 (also with a carried state); o and the final state are both
    checked; at rwkv6's shape and ``HANDOFF_SCAN`` the kernel is also held
    within max(1e-6, 2x the plain version's own) rel L2 of a float64 scan;
-10. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, d_ff 7168,
+11. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, d_ff 7168,
    vocab 65536) with random weights drawn on the card from seed 0:
    ``loss_fn`` at B=2, S=2048 (finite; 24 launches), timed; the same
    forward with ``scan_op`` forced onto the plain version, in bf16 (loss
@@ -65,7 +75,7 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    printed, the argmax not required: bf16 rounding flips decide it) and in
    float32 (loss within 1e-4, last logits within 1e-3 rel L2, argmax
    equal);
-11. rwkv6-1.6b serving: ``ServeEngine`` with 4 slots answers 6 requests of
+12. rwkv6-1.6b serving: ``ServeEngine`` with 4 slots answers 6 requests of
    64-token prompts x 32 new tokens (every re-prefill at most 96 wide; 24
    launches per prefill, 0 per decode step); prefill-then-decode against
    the full-sequence forward, in bf16 at S=128 (rel L2 0.2, argmax equal)
@@ -73,8 +83,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    under ``torch.profiler``.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
-one timed pass of the paper-scale sweep; one ``loss_fn`` forward of each
-model; each serving run) and read just after it.
+one timed pass of the paper-scale sweep; the mapping search, which must
+launch none; one ``loss_fn`` forward of each model; each serving run) and
+read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -474,6 +485,180 @@ def phase_paper_scale(tables, device, n_pes: int = 16384,
         f"{worst_rel:.3g} (rtol {RTOL}); bit-equal on {bit_equal} of "
         f"{len(tables)} tables")
     return launches, worst_abs, ms
+
+
+# ----------------------------------------------------------------------
+# The mapping search (repro_torch.mapspace): no hand kernel on this path
+# ----------------------------------------------------------------------
+
+FIXTURE = ROOT / "tests" / "data" / "torch_mapsearch_fixture.json"
+MAPSEARCH_CASES = ("conv13/exhaustive", "conv13/greedy")
+MAPSEARCH_RTOL = 1e-6
+
+
+def fixture_module():
+    """``scripts/make_mapsearch_fixture.py`` (numpy at import; JAX only in
+    its ``main``): the cases' specs and how to build them."""
+    import importlib.util
+    path = ROOT / "scripts" / "make_mapsearch_fixture.py"
+    spec = importlib.util.spec_from_file_location("make_mapsearch_fixture",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def near(a: float, b: float, rtol: float = MAPSEARCH_RTOL) -> bool:
+    return abs(a - b) <= rtol * abs(b)
+
+
+def same_ranking(label: str, got: list, want: list) -> int:
+    """``got`` and ``want`` are [(point, value, stats)] best first.  Values
+    and stats at rtol 1e-6; the points in the same order, except that
+    entries whose ``want`` values lie within 1e-6 of each other may swap
+    (and at the end of the list, a point of such a tie from outside
+    ``want`` may come in).  Returns how many positions were swapped."""
+    check(len(got) == len(want), f"{label}: top-k of {len(got)}, "
+          f"not {len(want)}")
+    by_point = {p: (v, s) for p, v, s in want}
+    swapped = 0
+    for i, ((gp, gv, gs), (wp, wv, _)) in enumerate(zip(got, want)):
+        check(near(gv, wv), f"{label}: value {gv!r} at {i} is not "
+              f"{wv!r} within {MAPSEARCH_RTOL}")
+        if gp != wp:
+            swapped += 1
+            if gp in by_point:
+                check(near(by_point[gp][0], wv), f"{label}: {gp} at {i} "
+                      f"swapped with {wp} outside a tie")
+            else:
+                check(all(near(v, wv) for _, v, _ in want[i:]),
+                      f"{label}: {gp} at {i} is not in the reference's "
+                      f"top-k and not in its last tie")
+        ref = by_point.get(gp)
+        if ref is not None:
+            for k, v in ref[1].items():
+                check(near(gs[k], v), f"{label}: {gp} {k} {gs[k]!r} vs "
+                      f"{v!r}")
+    return swapped
+
+
+def ranking(r) -> list:
+    return [(tuple(e["point"]), e["value"], e["stats"]) for e in r.top_k]
+
+
+def profile_search(fn, label: str, device) -> None:
+    """One warm search under ``torch.profiler``: wall, the card's busy time
+    and idle share, kernels and host-to-device copies per chunk (a chunk
+    is one dispatch of the reduced evaluator, counted by the
+    ``universal.warm_hits`` counter), the top device kernels and the top
+    host operators by self time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    def hits() -> float:
+        return sum(obs.metrics().counters("universal.warm_hits").values())
+    h0 = hits()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    chunks = int(hits() - h0)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    h2d = [e for e in dev if "HtoD" in e.name]
+    copies = [e for e in dev if "Memcpy" in e.name or "Memset" in e.name]
+    kernels = len(dev) - len(copies)
+    log(f"[mapsearch-profile] {label}: wall {wall:.4f} s profiled; device "
+        f"busy {busy_s:.6f} s: idle share {1 - busy_s / wall:.4f}; "
+        f"{chunks} chunks, {kernels} kernels ({kernels / max(chunks, 1):.1f}"
+        f" a chunk), {len(h2d)} host-to-device copies "
+        f"({len(h2d) / max(chunks, 1):.1f} a chunk), {len(copies)} copies "
+        f"and sets in all")
+    by_name: dict[str, list] = {}
+    for e in dev:
+        s = by_name.setdefault(e.name, [0, 0.0])
+        s[0] += 1
+        s[1] += e.time_range.elapsed_us()
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
+                                )[:6]:
+        log(f"[mapsearch-profile]   device {us / 1e3:.3f} ms "
+            f"({us / 1e6 / max(busy_s, 1e-12):.4f} of busy) in {n} x "
+            f"{name[:70]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        log(f"[mapsearch-profile]   host self "
+            f"{e.self_cpu_time_total / 1e3:.3f} ms in {e.count} x "
+            f"{e.key[:70]}")
+
+
+def phase_mapsearch(device, cases=MAPSEARCH_CASES, card: str = "") -> None:
+    """The mapping search through ``repro_torch.mapspace.search`` on
+    ``device``: the exhaustive search of vgg16-conv13's 72-group space
+    (10368 mappings; num_pes 256, noc_bw 32, edp, top-k 8, block 1024),
+    cold and then warm, and a greedy search of it under a budget of 2048
+    (``auto`` resolves to greedy); each held against the JAX package's
+    results (``tests/data/torch_mapsearch_fixture.json``) and against the
+    same search by the port on the CPU in this process; mappings/s end to
+    end and steady; then one warm exhaustive search under
+    ``torch.profiler``.  No hand-written kernel is on this path (the
+    reference's has no Pallas kernel either)."""
+    from repro_torch import mapspace
+    from repro_torch.core import dnn_models, tensor_analysis
+    mk = fixture_module()
+    want = json.loads(FIXTURE.read_text())["cases"]
+    for name in cases:
+        case = want[name]
+        op, space, kw = mk.build_case(case["spec"], tensor_analysis,
+                                      dnn_models, mapspace)
+        check((space.size, space.n_groups) ==
+              (case["space_size"], case["space_groups"]),
+              f"{name}: space of {space.size} mappings in {space.n_groups}"
+              f" groups, not {case['space_size']} in "
+              f"{case['space_groups']}")
+        runs = [("cold", device), ("warm", device)] \
+            if name.endswith("exhaustive") else [("warm", device)]
+        results = []
+        for tag, dev in runs + [("cpu", torch.device("cpu"))]:
+            t0 = time.perf_counter()
+            r = mapspace.search(op, space=space, device=dev, **kw)
+            sync(device)
+            wall = time.perf_counter() - t0
+            results.append(r)
+            ref = case["result"]
+            check(r.strategy == ref["strategy"], f"{name}: strategy "
+                  f"{r.strategy}, not {ref['strategy']}")
+            check(r.n_evaluated == ref["n_evaluated"], f"{name} {tag}: "
+                  f"{r.n_evaluated} mappings evaluated, not "
+                  f"{ref['n_evaluated']}")
+            check(r.n_groups == ref["n_groups"], f"{name} {tag}: "
+                  f"{r.n_groups} groups, not {ref['n_groups']}")
+            check(all(np.isfinite(v) for e in r.top_k
+                      for v in e["stats"].values()),
+                  f"{name} {tag}: non-finite stats in the top-k")
+            swaps = same_ranking(
+                f"{name} {tag} vs JAX", ranking(r),
+                [(tuple(e["point"]), e["value"], e["stats"])
+                 for e in ref["top_k"]])
+            log(f"[mapsearch] {name} {tag} on {dev.type}: {r.strategy}, "
+                f"{r.n_evaluated} mappings in {r.n_groups} groups, best "
+                f"{r.best_value!r} at {r.best_point} (JAX "
+                f"{ref['best_value']!r} at {tuple(ref['best_point'])}); "
+                f"top-{len(r.top_k)} as the JAX package's, {swaps} tied "
+                f"swaps; wall {wall:.4f} s, warm-up passes {r.n_compiles} "
+                f"({r.compile_s:.4f} s), encode {r.encode_s:.4f} s, eval "
+                f"{r.eval_s:.4f} s; {r.end_to_end_mappings_per_s:.6g} "
+                f"mappings/s end to end, {r.mappings_per_s:.6g} steady"
+                + (f" ({card})" if dev.type == "cuda" and card else ""))
+        same_ranking(f"{name} {device.type} vs cpu", ranking(results[-2]),
+                     ranking(results[-1]))
+    name = cases[0]
+    op, space, kw = mk.build_case(want[name]["spec"], tensor_analysis,
+                                  dnn_models, mapspace)
+    profile_search(lambda: mapspace.search(op, space=space, device=device,
+                                           **kw),
+                   f"{name} warm, {space.size} mappings", device)
 
 
 def fp32_ops_per_design(T) -> int:
@@ -1066,6 +1251,14 @@ def main() -> int:
     log(f"[launches] run_dse_full: maestro_eval {maestro_eval.launches}")
     profile_run_dse(device)
     launches, sweep_abs, sweep_ms = phase_paper_scale(tables, device)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+    maestro_eval.launches = flash_attention.launches = 0
+    linear_scan.launches = 0
+    phase_mapsearch(device, card=card)
+    log(f"[launches] mapping search: maestro_eval {maestro_eval.launches}, "
+        f"flash_attention {flash_attention.launches}, linear_scan "
+        f"{linear_scan.launches} (no hand kernel on this path)")
 
     name = torch.cuda.get_device_name(0)
     records = [kernel_record(tables, device, launches,

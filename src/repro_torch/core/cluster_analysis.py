@@ -38,11 +38,43 @@ class Backend:
         self.floordiv = floordiv
 
     def ceil_div(self, a, b):
+        # The reference's executables fold the two static terms of
+        # ``a + b - 1`` into one constant before the add (XLA's algebraic
+        # simplifier reassociates ``(C1 + t) - C2`` to ``t + (C1 - C2)``),
+        # and in float32 the two orders round differently (2 + 0.1 - 1 is
+        # 1.0999999, 0.1 + 1 is 1.1).  Tensors take the folded order; two
+        # static operands keep the exact Python path of the faithful engine.
+        a_t, b_t = _is_tensor(a), _is_tensor(b)
+        if b_t and not a_t:
+            return self.floordiv(b + (a - 1), b)
+        if a_t and not b_t:
+            return self.floordiv(a + (b - 1), b)
         return self.floordiv(a + b - 1, b)
 
     def eq(self, a, b):
         # returns 1/0 indicator usable in arithmetic
         return self.where(a == b, 1, 0)
+
+
+def _is_tensor(v) -> bool:
+    import torch
+    return isinstance(v, torch.Tensor)
+
+
+def floor_divide(a, b):
+    """``jnp.floor_divide`` on float tensors: remainder, subtract, divide,
+    sign correction, then ``lax.round``, which rounds half away from zero.
+    ``torch.floor_divide`` takes the same steps but rounds a half down (it
+    floors and adds one only above one half), so where (a - mod) / b lands
+    on k + 1/2, as it can for quotients in [2^22, 2^23), the two differ
+    (``floor_divide(11507717.0, 1.5)`` is 7671811 here and in JAX, 7671810
+    in torch)."""
+    import torch
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    div = torch.where((mod != 0) & ((b < 0) != (mod < 0)), div - 1, div)
+    t = torch.trunc(div)
+    return torch.where((div - t).abs() >= 0.5, t + torch.sign(div), t)
 
 
 def py_backend() -> Backend:
@@ -111,7 +143,10 @@ def _t_where(c, t, f):
 
 def _t_floordiv(a, b):
     import torch
-    return torch.floor_divide(*_tensors(a, b))
+    a, b = _tensors(a, b)
+    if torch.result_type(a, b).is_floating_point:
+        return floor_divide(a, b)
+    return torch.floor_divide(a, b)
 
 
 def torch_backend() -> Backend:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ...core.cluster_analysis import floor_divide as _floor_divide
 from .tables import EvalTables
 
 FEATURES = ("runtime", "macs", "throughput", "util", "bw_req")
@@ -43,19 +44,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ----------------------------------------------------------------------
 # Plain PyTorch version
 # ----------------------------------------------------------------------
-
-def _floor_divide(a, b):
-    """``jnp.floor_divide`` on float tensors: remainder, subtract, divide,
-    sign correction, then ``lax.round``, which rounds half away from zero.
-    ``torch.floor_divide`` takes the same steps but rounds a half down (it
-    floors and adds one only above one half), so where (a - mod) / b lands
-    on k + 1/2, as it can for quotients in [2^22, 2^23), the two differ."""
-    mod = torch.fmod(a, b)
-    div = (a - mod) / b
-    div = torch.where((mod != 0) & ((b < 0) != (mod < 0)), div - 1, div)
-    t = torch.trunc(div)
-    return torch.where((div - t).abs() >= 0.5, t + torch.sign(div), t)
-
 
 def _cdiv(a, b):
     if a.is_floating_point():

@@ -401,3 +401,74 @@ def test_rwkv_forward_launches_linear_scan_once_per_layer(cuda):
     assert np.isfinite(float(loss))
     assert mid == before + 2 * cfg.n_layers
     assert linear_scan.launches == mid  # decode runs the per-token step
+
+
+# ----------------------------------------------------------------------
+# The mapping search on the card (repro_torch.mapspace)
+# ----------------------------------------------------------------------
+
+def _search_case():
+    from repro_torch import mapspace
+    op = tensor_analysis.conv2d("gene-conv", k=8, c=6, y=12, x=12, r=3, s=3)
+    space = mapspace.build_space(op, dims=("K", "C", "Y"),
+                                 cluster_sizes=(8,), perm_mode="all")
+    return mapspace, op, space
+
+
+def _same_search(a, b):
+    assert a.strategy == b.strategy and a.n_evaluated == b.n_evaluated
+    assert a.best_point == b.best_point
+    assert [e["point"] for e in a.top_k] == [e["point"] for e in b.top_k]
+    for ea, eb in zip(a.top_k, b.top_k):
+        assert ea["value"] == pytest.approx(eb["value"], rel=1e-6)
+        for k, v in eb["stats"].items():
+            assert ea["stats"][k] == pytest.approx(v, rel=1e-6), k
+
+
+@pytest.mark.parametrize("strategy", ["exhaustive", "greedy"])
+def test_search_on_cuda_matches_cpu(cuda, strategy):
+    mapspace, op, space = _search_case()
+    kw = dict(objective="edp", budget=10_000 if strategy == "exhaustive"
+              else 150, space=space, num_pes=48, noc_bw=12.0,
+              strategy=strategy, seed=0, block=64)
+    on_card = mapspace.search(op, **kw)          # cuda by default
+    _same_search(on_card, mapspace.search(op, device="cpu", **kw))
+    legacy = mapspace.search(op, pipeline="legacy", **kw)
+    _same_search(legacy, on_card)
+
+
+def _same_answer(a, b):
+    _same_search(a, b)
+    assert a.best_value == b.best_value
+    assert [e["value"] for e in a.top_k] == [e["value"] for e in b.top_k]
+
+
+SEARCH_KW = dict(objective="edp", budget=120, num_pes=48, noc_bw=12.0,
+                 strategy="greedy", seed=5, block=32)
+
+
+def test_search_stripes_two_shards_on_one_card(cuda, monkeypatch):
+    """The striping over cards (per-shard row offsets, an event per
+    shard, the (value, global index) merge), run with two shards on
+    card 0 so that it runs on a one-card machine too."""
+    from repro_torch.mapspace import universal
+    mapspace, op, space = _search_case()
+    one = mapspace.search(op, devices=1, space=space, **SEARCH_KW)
+    assert one.n_devices == 1
+    monkeypatch.setattr(universal, "_devices", lambda device, n_devices:
+                        [torch.device("cuda", 0)] * 2)
+    two = mapspace.search(op, space=space, **SEARCH_KW)
+    assert two.n_devices == 2
+    _same_answer(two, one)
+
+
+def test_search_gives_the_same_answer_on_one_and_two_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"{n} CUDA device: striping over cards needs two")
+    mapspace, op, space = _search_case()
+    one = mapspace.search(op, devices=1, space=space, **SEARCH_KW)
+    for nd in sorted({2, n}):
+        many = mapspace.search(op, devices=nd, space=space, **SEARCH_KW)
+        assert many.n_devices == nd
+        _same_answer(many, one)

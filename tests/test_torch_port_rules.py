@@ -19,7 +19,9 @@ from repro_torch.core import dnn_models as tdm  # noqa: E402
 from repro_torch.core.dse import DSEConfig, run_dse, \
     run_dse_full  # noqa: E402
 from repro_torch.core.dataflows import table3_for_layer  # noqa: E402
-from repro_torch.core.vectorized import batched_evaluator  # noqa: E402
+from repro_torch.core.vectorized import (  # noqa: E402
+    batched_evaluator, batched_tile_evaluator)
+from repro_torch import mapspace  # noqa: E402
 from repro_torch.devices import resolve_device  # noqa: E402
 from repro_torch.inference import ServeEngine  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -48,7 +50,17 @@ def test_every_module_is_listed():
                  "repro_torch.models.registry",
                  "repro_torch.inference.engine",
                  "repro_torch.launch.llmserve",
-                 "repro_torch.interop", "repro_torch.resilience.errors"):
+                 "repro_torch.interop", "repro_torch.resilience.errors",
+                 "repro_torch.resilience.policy",
+                 "repro_torch.resilience.watchdog",
+                 "repro_torch.resilience.sweepckpt",
+                 "repro_torch.resilience.faultinject",
+                 "repro_torch.obs.context", "repro_torch.obs.metrics",
+                 "repro_torch.obs.trace", "repro_torch.mapspace.space",
+                 "repro_torch.mapspace.universal",
+                 "repro_torch.mapspace.batched",
+                 "repro_torch.mapspace.cache",
+                 "repro_torch.mapspace.search"):
         assert name in MODULES
 
 
@@ -198,3 +210,38 @@ def test_rwkv_entry_points_run_on_cpu_on_request(no_cuda):
     with pytest.raises(ValueError, match="asked for"):
         registry.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
                          16, device="cuda")
+
+
+def _map_case():
+    op = tdm.vgg16()[12]
+    space = mapspace.build_space(op, dims=("K", "C"), cluster=False)
+    return op, space
+
+
+def test_mapping_search_raises_without_device(no_cuda):
+    op, space = _map_case()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mapspace.search(op, space=space, budget=16)
+    with pytest.raises(RuntimeError):
+        mapspace.search_impl(op, space=space, budget=16, pipeline="legacy")
+    g = mapspace.enumerate_genes(space)[:8]
+    with pytest.raises(RuntimeError):
+        mapspace.evaluate_genes(op, space, g, num_pes=256, noc_bw=32.0)
+    with pytest.raises(RuntimeError):
+        mapspace.evaluate_points(op, space, mapspace.points_from_genes(g),
+                                 num_pes=256, noc_bw=32.0)
+    key = tuple(int(x) for x in g[0, :3])
+    tpl, slots = mapspace.group_template(space, key)
+    with pytest.raises(RuntimeError):
+        batched_tile_evaluator(op, tpl, slots, num_pes=256, noc_bw=32.0)
+
+
+def test_mapping_search_runs_on_cpu_on_request(no_cuda):
+    op, space = _map_case()
+    r = mapspace.search(op, space=space, budget=16, strategy="random",
+                        device="cpu", devices=4)
+    assert r.n_evaluated == 16 and r.n_devices == 1
+    assert np.isfinite(r.best_value)
+    ev = mapspace.evaluate_genes(op, space, mapspace.enumerate_genes(space)[:8],
+                                 num_pes=256, noc_bw=32.0, device="cpu")
+    assert ev.run.n_devices == 1 and len(ev.top) == 8
