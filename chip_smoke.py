@@ -37,6 +37,16 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    own search on the CPU; mappings/s end to end and steady; then one warm
    exhaustive search under ``torch.profiler`` (kernels and host-to-device
    copies per chunk, idle share, top device kernels and host operators);
+5b. the front door (``repro_torch.api``, no hand kernel on this path):
+   ``Session(cache_dir=None).run`` for vgg16-conv13's ``layer`` query (the
+   session's default space; pes 256, bw 32, EDP, budget 600, block 1024,
+   top-k 8; cold, then warm) and its ``layer_codse`` query (the default 128 x 128
+   ``DSEConfig`` grid, codse top-k 4, 32 joint genes: 655,795 designs),
+   each report held field by field against the JAX package's
+   (``tests/data/torch_front_door_fixture.json``: points identical, values
+   at rtol 1e-6, top-k swaps only within 1e-6 ties); wall, mappings/s or
+   designs/s and the phase timing; ``Session.run_search`` bit-equal to
+   ``search_impl`` on phase 5's space; the three launch counts 0;
 6. ``flash_attention`` against its plain version (``attention_ref``) with
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
    the SIMT kernel) and bf16 (2e-2, the wgmma kernel), then at the LLM
@@ -83,9 +93,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    under ``torch.profiler``.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
-one timed pass of the paper-scale sweep; the mapping search, which must
-launch none; one ``loss_fn`` forward of each model; each serving run) and
-read just after it.
+one timed pass of the paper-scale sweep; the mapping search and the front
+door, which must launch none; one ``loss_fn`` forward of each model; each
+serving run) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -496,13 +506,14 @@ MAPSEARCH_CASES = ("conv13/exhaustive", "conv13/greedy")
 MAPSEARCH_RTOL = 1e-6
 
 
-def fixture_module():
-    """``scripts/make_mapsearch_fixture.py`` (numpy at import; JAX only in
-    its ``main``): the cases' specs and how to build them."""
+def _load_script(name: str):
+    """``scripts/<name>.py`` as a module.  Both fixture scripts import
+    numpy or the stdlib at module level and JAX only in their ``main``;
+    their case lists and comparisons are what this script holds the port
+    to."""
     import importlib.util
-    path = ROOT / "scripts" / "make_mapsearch_fixture.py"
-    spec = importlib.util.spec_from_file_location("make_mapsearch_fixture",
-                                                  path)
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -606,7 +617,7 @@ def phase_mapsearch(device, cases=MAPSEARCH_CASES, card: str = "") -> None:
     reference's has no Pallas kernel either)."""
     from repro_torch import mapspace
     from repro_torch.core import dnn_models, tensor_analysis
-    mk = fixture_module()
+    mk = _load_script("make_mapsearch_fixture")
     want = json.loads(FIXTURE.read_text())["cases"]
     for name in cases:
         case = want[name]
@@ -659,6 +670,94 @@ def phase_mapsearch(device, cases=MAPSEARCH_CASES, card: str = "") -> None:
     profile_search(lambda: mapspace.search(op, space=space, device=device,
                                            **kw),
                    f"{name} warm, {space.size} mappings", device)
+
+
+# ----------------------------------------------------------------------
+# The front door (repro_torch.api): no hand kernel on this path either
+# ----------------------------------------------------------------------
+
+FRONT_DOOR_FIXTURE = ROOT / "tests" / "data" / "torch_front_door_fixture.json"
+FRONT_DOOR_CASES = ("layer", "layer_codse")
+
+
+def phase_front_door(device, cases=FRONT_DOOR_CASES, card: str = "") -> None:
+    """``Session(cache_dir=None).run`` on ``device`` for vgg16-conv13: the
+    ``layer`` query (the session's default space; pes 256, bw 32, EDP,
+    budget 600, block 1024, top-k 8; cold, then warm) and the
+    ``layer_codse`` query (the
+    same layer at the default 128 x 128 ``DSEConfig`` grid, codse top-k 4,
+    32 joint genes), each held against the JAX package's report
+    (``tests/data/torch_front_door_fixture.json``: the same query JSON and
+    fingerprint; every report field but the timings, points identical and
+    values at rtol 1e-6, top-k swaps only within 1e-6 ties); wall,
+    mappings/s or designs/s and the phase timing; then ``Session.run_search``
+    against ``search_impl`` on phase 5's 72-group space, bit for bit."""
+    from repro_torch import mapspace
+    from repro_torch.api import Query, Session
+    from repro_torch.core import dnn_models, tensor_analysis
+    from repro_torch.core.dse import DSEConfig
+    from repro_torch.mapspace.search import search_impl
+    fx = _load_script("make_front_door_fixture")
+    want = json.loads(FRONT_DOOR_FIXTURE.read_text())["cases"]
+    session = Session(cache_dir=None, device=device)
+    on = f" ({card})" if device.type == "cuda" and card else ""
+    for name in cases:
+        d = fx.query_json(fx.CASES[name], DSEConfig)
+        check(d == want[name]["query"], f"{name}: the query is not the "
+              f"fixture's")
+        q = Query.from_json(d)
+        check(q.kind == name and q.fingerprint() == want[name]["fingerprint"],
+              f"{name}: kind {q.kind}, fingerprint {q.fingerprint()}, not "
+              f"the reference's {want[name]['fingerprint']}")
+        # the layer query twice: its first passes, then warm
+        for tag in ("cold", "warm") if name == "layer" else ("cold",):
+            t0 = time.perf_counter()
+            rep = session.run(q)
+            sync(device)
+            wall = time.perf_counter() - t0
+            try:
+                swaps = fx.compare_reports(rep.to_json(),
+                                           want[name]["report"])
+            except AssertionError as e:
+                raise SmokeError(f"{name} report vs JAX: {e}") from e
+            timing = json.dumps(rep.extras["timing"])
+            if name == "layer":
+                log(f"[front-door] layer {rep.name} {tag} on {device.type}: "
+                    f"{rep.strategy}, {rep.n_evaluated} mappings, best "
+                    f"{rep.best['value']!r} at {rep.best['point']}; report "
+                    f"as the JAX package's, {swaps} tied swaps; wall "
+                    f"{wall:.4f} s, {rep.n_evaluated / wall:.6g} mappings/s "
+                    f"end to end (engine's own "
+                    f"{rep.rates['end_to_end_mappings_per_s']:.6g}, steady "
+                    f"{rep.rates['mappings_per_s']:.6g}); timing "
+                    f"{timing}{on}")
+                continue
+            j = rep.extras["joint"]
+            bests = "; ".join(
+                f"{obj} {b[obj if obj != 'energy' else 'energy_pj']!r} at "
+                f"pes {b['num_pes']} bw {b['noc_bw']} {b['mapping']}"
+                for obj, b in rep.best["per_objective"].items())
+            log(f"[front-door] layer_codse {rep.name} on {device.type}: "
+                f"{rep.n_evaluated} designs evaluated ({j['n_designs']} in "
+                f"the joint sweep, {j['n_valid']} valid), Pareto front of "
+                f"{len(rep.pareto)}; report as the JAX package's, {swaps} "
+                f"tied swaps; wall {wall:.4f} s, "
+                f"{rep.n_evaluated / wall:.6g} designs/s end to end, joint "
+                f"sweep {j['designs_per_s']:.6g} designs/s; bests: {bests}; "
+                f"timing {timing}{on}")
+    mk = _load_script("make_mapsearch_fixture")
+    case = json.loads(FIXTURE.read_text())["cases"][MAPSEARCH_CASES[0]]
+    op, space, kw = mk.build_case(case["spec"], tensor_analysis, dnn_models,
+                                  mapspace)
+    a = search_impl(op, space=space, device=device, **kw)
+    b = Session(cache_dir=None, device=device).run_search(op, space=space,
+                                                          **kw)
+    check((a.best_point, a.best_value, a.best_stats, a.top_k, a.n_evaluated)
+          == (b.best_point, b.best_value, b.best_stats, b.top_k,
+              b.n_evaluated), "Session.run_search is not search_impl bit "
+          "for bit")
+    log(f"[front-door] Session.run_search on {MAPSEARCH_CASES[0]}: bit-equal "
+        f"to search_impl ({a.n_evaluated} mappings, best {a.best_value!r})")
 
 
 def fp32_ops_per_design(T) -> int:
@@ -1259,6 +1358,14 @@ def main() -> int:
     log(f"[launches] mapping search: maestro_eval {maestro_eval.launches}, "
         f"flash_attention {flash_attention.launches}, linear_scan "
         f"{linear_scan.launches} (no hand kernel on this path)")
+    maestro_eval.launches = flash_attention.launches = 0
+    linear_scan.launches = 0
+    phase_front_door(device, card=card)
+    fd = (maestro_eval.launches, flash_attention.launches,
+          linear_scan.launches)
+    log(f"[launches] front door: maestro_eval {fd[0]}, flash_attention "
+        f"{fd[1]}, linear_scan {fd[2]} (no hand kernel on this path)")
+    check(fd == (0, 0, 0), f"the front door launched hand kernels {fd}")
 
     name = torch.cuda.get_device_name(0)
     records = [kernel_record(tables, device, launches,

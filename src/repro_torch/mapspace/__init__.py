@@ -17,10 +17,13 @@ Quick start::
     print(result.best_dataflow)
     print(result.best_stats["edp"], result.mappings_per_s)
 
-The joint mapping × hardware co-search (``co_search``, ``joint_sweep``)
-is not ported yet.
+    # joint mapping x hardware co-DSE over the default (PEs x bw) grid
+    co = co_search(op, objective="edp", mapping_budget=500, device="cpu")
+    print(co.best["edp"], len(co.pareto))
 """
 from .batched import EvalStats, evaluate_points, measure_rate
+from .codse import (CoDSEResult, JointSweepResult, co_search,
+                    co_search_impl, hw_grid, joint_sweep, merged_pareto)
 from .search import (OBJECTIVES, PIPELINES, STRATEGIES, SearchResult,
                      search, search_impl, static_candidates)
 from .space import (ClusterOption, GeneTables, MapSpace, MapSpaceError,
@@ -37,17 +40,18 @@ from .universal import (GeneEval, GeneRun, compile_count, encode_genes,
                         universal_specs)
 
 __all__ = [
-    "ClusterOption", "EvalStats", "GeneEval", "GeneRun", "GeneTables",
-    "MapSpace", "MapSpaceError", "OBJECTIVES", "PIPELINES", "STRATEGIES",
-    "SearchResult", "TileAxis", "build_space", "buffer_estimate_kb",
-    "buffer_estimates_genes", "canonical_signature", "compile_count",
+    "ClusterOption", "CoDSEResult", "EvalStats", "GeneEval", "GeneRun",
+    "GeneTables", "JointSweepResult", "MapSpace", "MapSpaceError",
+    "OBJECTIVES", "PIPELINES", "STRATEGIES", "SearchResult", "TileAxis",
+    "build_space", "buffer_estimate_kb", "buffer_estimates_genes",
+    "canonical_signature", "co_search", "co_search_impl", "compile_count",
     "decode_indices", "dedupe_equivalent_genes",
     "dedupe_equivalent_points", "encode_genes", "enumerate_genes",
     "enumerate_points", "evaluate_genes", "evaluate_points",
     "evaluate_points_universal", "flat_index", "gene_tables",
-    "genes_from_points", "group_template", "measure_rate",
-    "pad_tile_axes", "point_dataflow", "points_from_genes",
-    "prune_by_budget", "prune_genes_by_budget", "sample_genes",
-    "sample_points", "search", "search_impl", "static_candidates",
-    "universal_specs",
+    "genes_from_points", "group_template", "hw_grid", "joint_sweep",
+    "measure_rate", "merged_pareto", "pad_tile_axes", "point_dataflow",
+    "points_from_genes", "prune_by_budget", "prune_genes_by_budget",
+    "sample_genes", "sample_points", "search", "search_impl",
+    "static_candidates", "universal_specs",
 ]

@@ -472,12 +472,15 @@ def _search_genes(op, space, rng, objective, budget, strategy, *, seed,
 def search(op: LayerOp, objective: str = "edp", budget: int = 2000,
            **kwargs) -> SearchResult:
     """Search the mapping space of ``op`` for the best dataflow at a fixed
-    hardware point.  The reference forwards to :func:`search_impl`
-    through its declarative session; the port has no session yet and
-    calls :func:`search_impl` directly.  Accepts exactly
+    hardware point — a thin wrapper over the declarative session path
+    (``repro_torch.api``): the shared default session keeps the query
+    count and forwards verbatim to :func:`search_impl` (bit-equal by
+    construction; see ``tests/test_torch_api.py``).  Accepts exactly
     :func:`search_impl`'s keywords; runs on ``cuda`` unless ``device``
     names another device."""
-    return search_impl(op, objective=objective, budget=budget, **kwargs)
+    from ..api.session import default_session
+    return default_session().run_search(op, objective=objective,
+                                        budget=budget, **kwargs)
 
 
 def search_impl(op: LayerOp, objective: str = "edp", budget: int = 2000,
@@ -492,9 +495,11 @@ def search_impl(op: LayerOp, objective: str = "edp", budget: int = 2000,
                 cache_dir: str | None = None,
                 pipeline: str = "gene", devices: int | None = None,
                 multicast: bool = True, spatial_reduction: bool = True,
+                cache_extra: str = "",
                 ckpt_dir: str | None = None,
                 device: str | torch.device | None = None) -> SearchResult:
-    """The per-layer mapping-search engine behind :func:`search`.
+    """The per-layer mapping-search engine behind :func:`search` and
+    ``repro_torch.api.Session``.
     ``budget`` caps evaluated mappings; ``strategy`` is ``auto`` or one of
     ``exhaustive`` / ``random`` / ``greedy`` / ``genetic``.  It runs on
     ``device`` (``cuda`` unless the caller asks for another) and raises
@@ -511,7 +516,8 @@ def search_impl(op: LayerOp, objective: str = "edp", budget: int = 2000,
     ``jax.random`` children).
 
     ``l1_budget_kb``/``l2_budget_kb`` drop over-budget tile sets before
-    evaluation.
+    evaluation.  ``cache_extra`` is an opaque component of the disk-cache
+    key (the session path passes the full ``Query`` fingerprint).
 
     With ``ckpt_dir``, every gene-pipeline evaluation pass checkpoints
     under a key derived from the result-cache key, so a killed search
@@ -538,7 +544,7 @@ def search_impl(op: LayerOp, objective: str = "edp", budget: int = 2000,
         extra=f"mc={multicast},sr={spatial_reduction},"
               f"rf={refine_frac},blk={block},tk={top_k},"
               f"pop={population},l1={l1_budget_kb},l2={l2_budget_kb},"
-              f"pipe={pipeline},dev={dev.type}")
+              f"pipe={pipeline},dev={dev.type},q={cache_extra}")
     hit = _cache.load(cache_dir, key)
     if hit is not None:
         return SearchResult(

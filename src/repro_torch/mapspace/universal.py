@@ -37,10 +37,10 @@ import torch
 
 from .. import obs
 from ..devices import resolve_device
-from ..resilience import (CHUNK_WATCHDOG, DEFAULT_POLICY, RetryPolicy,
-                          SweepCheckpoint, SweepKilled, array_hash,
-                          fault_point, is_oom, pack_top, run_attempts,
-                          unpack_top)
+from ..resilience import (CHUNK_WATCHDOG, RetryPolicy, SweepCheckpoint,
+                          SweepKilled, array_hash, check_cancel,
+                          default_policy, fault_point, is_oom, pack_top,
+                          run_attempts, unpack_top)
 from ..core.tensor_analysis import LayerOp
 from ..core.vectorized import (FEATURES, HWTail, ReduceSpec, UniversalSpec,
                                universal_evaluator,
@@ -449,8 +449,8 @@ def evaluate_genes(op: LayerOp, space: MapSpace, genes: np.ndarray, *,
     folds run_dse-style area/power/leakage accounting into the reduction.
     Results are deterministic and identical for any device count.
 
-    Resilience: every chunk runs under ``retry`` (default:
-    ``resilience.DEFAULT_POLICY``) — a failed device pass re-encodes and
+    Resilience: every chunk runs under ``retry`` (default: the installed
+    ``resilience.default_policy()``) — a failed device pass re-encodes and
     re-dispatches with backoff on the same device; device OOM recursively
     re-evaluates just the failed chunk at half the block size on one
     device (``resilience.chunk_splits``); budget exhaustion surfaces a
@@ -467,7 +467,7 @@ def evaluate_genes(op: LayerOp, space: MapSpace, genes: np.ndarray, *,
     nd = len(devs)
     genes = np.asarray(genes, np.int64)
     n = genes.shape[0]
-    retry = retry or DEFAULT_POLICY
+    retry = retry or default_policy()
     splits_left = retry.max_splits if _splits_left is None else _splits_left
     spec1, spec2 = universal_specs(op, space)
     pes = np.broadcast_to(np.asarray(num_pes, np.float32), (n,))
@@ -663,6 +663,7 @@ def evaluate_genes(op: LayerOp, space: MapSpace, genes: np.ndarray, *,
             return outs, events
 
         def dispatch(shards, m):
+            check_cancel("chunk")
             fault_point("chunk")
             if not is_warm(wk):
                 with obs.span("compile", family=fam_label,

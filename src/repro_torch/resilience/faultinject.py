@@ -21,8 +21,9 @@ Spec grammar (comma-separated directives)::
                          one retry
 
 Sites in the port: ``chunk`` (``mapspace.universal.evaluate_genes``
-device chunks) and ``checkpoint`` (``SweepCheckpoint.save``).  Every
-firing increments ``resilience.faults_injected``.
+device chunks), ``design-chunk`` (``mapspace.codse.joint_sweep``) and
+``checkpoint`` (``SweepCheckpoint.save``).  Every firing increments
+``resilience.faults_injected``.
 """
 from __future__ import annotations
 

@@ -15,13 +15,15 @@ device pass before surfacing a :class:`~.errors.DeviceError`:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import random
+import threading
 import time
 import zlib
 
 from .. import obs
-from .errors import DeviceError, ReproError, is_oom
+from .errors import BudgetExceeded, DeviceError, ReproError, is_oom
 from .faultinject import SweepKilled
 
 
@@ -54,6 +56,68 @@ class RetryPolicy:
 
 
 DEFAULT_POLICY = RetryPolicy()
+
+# The process-wide policy the chunk loops fall back to when the caller
+# does not pass one explicitly — Session(resilience=...) installs its
+# RetryPolicy here so it reaches every device pass without threading a
+# parameter through four layers of call sites.
+_INSTALLED: RetryPolicy = DEFAULT_POLICY
+
+
+def set_default_policy(policy: RetryPolicy | None) -> None:
+    """Install ``policy`` as the process-wide default (None restores
+    :data:`DEFAULT_POLICY`)."""
+    global _INSTALLED
+    _INSTALLED = policy or DEFAULT_POLICY
+
+
+def default_policy() -> RetryPolicy:
+    """The currently installed process-wide retry policy."""
+    return _INSTALLED
+
+
+# -- cooperative cancellation -------------------------------------------
+#
+# A device pass cannot be preempted, so deadlines are enforced *between*
+# chunks: the session opens a cancel scope around a query and the chunk
+# loops poll check_cancel() at each chunk boundary (next to the
+# fault_point sites).  The scope is thread-local — one worker's deadline
+# never leaks into another thread's sweep.
+
+_CANCEL = threading.local()
+
+
+@contextlib.contextmanager
+def cancel_scope(deadline_t: float | None):
+    """Bound all chunk work inside the ``with`` body by an absolute
+    ``time.monotonic()`` deadline (None = no bound).  Scopes nest; the
+    innermost-effective deadline is the minimum of the stack."""
+    prev = getattr(_CANCEL, "deadline_t", None)
+    if deadline_t is not None and prev is not None:
+        deadline_t = min(deadline_t, prev)
+    _CANCEL.deadline_t = deadline_t
+    try:
+        yield
+    finally:
+        _CANCEL.deadline_t = prev
+
+
+def check_cancel(label: str = "chunk") -> None:
+    """Raise :class:`BudgetExceeded` when the enclosing
+    :func:`cancel_scope` deadline has passed.  Cheap enough to call at
+    every chunk boundary; a no-op outside any scope.  (The reference also
+    writes the cancellation to its crash flight recorder, which the port
+    does not have yet: ROADMAP queue 1, item 4.)"""
+    deadline_t = getattr(_CANCEL, "deadline_t", None)
+    if deadline_t is None:
+        return
+    over = time.monotonic() - deadline_t
+    if over >= 0.0:
+        obs.metrics().inc("resilience.cancelled_chunks")
+        obs.instant("cancel", label=label, over_s=round(over, 4))
+        raise BudgetExceeded(
+            f"deadline expired {over:.3f}s ago at {label} boundary",
+            budget="deadline_s")
 
 
 def run_attempts(fn, *, policy: RetryPolicy, label: str,

@@ -472,3 +472,50 @@ def test_search_gives_the_same_answer_on_one_and_two_cards(cuda):
         many = mapspace.search(op, devices=nd, space=space, **SEARCH_KW)
         assert many.n_devices == nd
         _same_answer(many, one)
+
+
+# ----------------------------------------------------------------------
+# The front door on the card (repro_torch.api)
+# ----------------------------------------------------------------------
+
+FRONT_DOOR_QUERIES = [
+    {"workload": {"op": {"type": "conv2d", "name": "fd-conv", "k": 8,
+                         "c": 6, "y": 12, "x": 12, "r": 3, "s": 3}},
+     "hardware": {"num_pes": 48, "noc_bw": 12.0},
+     "search": {"objective": "edp", "budget": 150, "block": 64,
+                "top_k": 4}},
+    {"workload": {"op": {"type": "conv2d", "name": "fd-conv", "k": 8,
+                         "c": 6, "y": 12, "x": 12, "r": 3, "s": 3}},
+     "hardware": {"num_pes": 48, "noc_bw": 12.0,
+                  "pe_range": [16, 32, 64], "bw_range": [4.0, 8.0, 16.0]},
+     "search": {"objective": "edp", "budget": 80, "block": 64,
+                "top_k": 4, "codse_top_k": 2, "joint_genes": 16}},
+]
+
+
+@pytest.mark.parametrize("d", FRONT_DOOR_QUERIES,
+                         ids=["layer", "layer_codse"])
+def test_session_on_cuda_matches_cpu(cuda, d):
+    """``Session.run`` on the card (its default) and on the CPU: the same
+    report but for the timings (points identical, values at rtol 1e-6,
+    top-k swaps only within 1e-6 ties)."""
+    from repro_torch.api import Query, Session
+    from torch_scripts import load_script
+    fx = load_script("make_front_door_fixture")
+    q = Query.from_json(d)
+    on_card = Session().run(q)
+    on_cpu = Session(device="cpu").run(q)
+    assert on_card.kind == q.kind
+    fx.compare_reports(on_card.to_json(), on_cpu.to_json())
+
+
+def test_bench_provenance_is_the_runs_device(cuda):
+    """On a host with a card, a CPU run's artifact says ``cpu`` and a card
+    run's names the card."""
+    from repro_torch.api import Report
+    on_card = Report.bench("x", {}).to_json()["environment"]
+    assert on_card["backend"] == "cuda"
+    assert on_card["device_kind"] == torch.cuda.get_device_name(0)
+    assert on_card["device_count"] == torch.cuda.device_count()
+    on_cpu = Report.bench("x", {}, device="cpu").to_json()["environment"]
+    assert on_cpu["backend"] == "cpu" and on_cpu["device_kind"] == "cpu"

@@ -1,9 +1,11 @@
 """Port of the dense LLM path against the JAX package's: configs, specs and
 initialisation; each layer in float32; ``loss_fn`` on both of the
 reference's attention routes; prefill and decode; the serving engine and
-its CLI.  Weights are drawn by the JAX package and carried over with
+its CLI.  Weights are drawn by the JAX package (with a per-path seed that
+is the same in every process, ``_j_init``) and carried over with
 ``interop.params_from_jax``; inputs are made with numpy from a seed."""
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ from repro.inference import ServeEngine as JServeEngine  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import registry as JR  # noqa: E402
 from repro.models.param import init_params as j_init  # noqa: E402
+from repro.models.param import map_specs as j_map_specs  # noqa: E402
 from repro.models.param import tree_paths as j_paths  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
@@ -49,8 +52,32 @@ def _cfgs(arch: str, dtype: str = "bfloat16", **kw):
             REGISTRY[arch].reduced().replace(dtype=td, **kw))
 
 
+def _j_init(tree, key) -> dict:
+    """The JAX package's ``init_params`` with each leaf's seed taken from
+    ``zlib.crc32`` of its path.  The reference seeds a leaf with
+    ``hash(path)``, and ``hash`` of a str is salted per process
+    (``PYTHONHASHSEED``): every pytest worker drew other weights, and at
+    about 1 draw in 36 a float32 decode logit of olmo-1b fell 1.03x outside
+    ``F32_TOL``.  Both packages are a few ulps from float64 after every
+    block; the tied lm head's 64-term dot carries that into ~1e-5 on a
+    logit near 0, on either side (``scripts/olmo_decode_witness.py``)."""
+    def leaf(path, spec):
+        if spec.init in ("zeros", "ones"):
+            return (jnp.zeros if spec.init == "zeros" else jnp.ones)(
+                spec.shape, spec.dtype)
+        k = jax.random.fold_in(key, zlib.crc32("/".join(path).encode())
+                               % (2 ** 31))
+        std = spec.scale if spec.scale is not None else 1.0 \
+            if spec.init == "embed" else (
+                spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+            ) ** -0.5
+        return (jax.random.normal(k, spec.shape, jnp.float32) * std
+                ).astype(spec.dtype)
+    return j_map_specs(tree, leaf)
+
+
 def _params(jcfg, dtype: str = "bfloat16"):
-    pj = j_init(JR.specs(jcfg), KEY)
+    pj = _j_init(JR.specs(jcfg), KEY)
     if dtype == "float32":
         pj = jax.tree.map(lambda a: a.astype(jnp.float32), pj)
     return pj, interop.params_from_jax(jax.tree.map(np.asarray, pj), CPU)

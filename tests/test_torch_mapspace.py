@@ -16,7 +16,6 @@ draws its children from a ``torch.Generator`` where the reference uses
 determinism under its seed and a best within 2x of the exhaustive best.
 Everything runs with ``device="cpu"``; seeded numpy draws only."""
 import dataclasses
-import importlib.util
 import json
 import os
 import subprocess
@@ -42,15 +41,13 @@ from repro_torch.mapspace import universal as tmu  # noqa: E402
 from repro_torch.mapspace.universal import universal_specs  # noqa: E402
 from repro_torch.resilience import (RetryPolicy, SweepKilled,  # noqa: E402
                                     faultinject)
+from torch_scripts import load_script  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "torch_mapsearch_fixture.json"
 SCRIPT = ROOT / "scripts" / "make_mapsearch_fixture.py"
 
-_spec = importlib.util.spec_from_file_location("make_mapsearch_fixture",
-                                               SCRIPT)
-mk = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(mk)
+mk = load_script("make_mapsearch_fixture")
 
 CASES = json.loads(FIXTURE.read_text())["cases"]
 PES, BW = 48, 12.0

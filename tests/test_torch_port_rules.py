@@ -60,7 +60,11 @@ def test_every_module_is_listed():
                  "repro_torch.mapspace.universal",
                  "repro_torch.mapspace.batched",
                  "repro_torch.mapspace.cache",
-                 "repro_torch.mapspace.search"):
+                 "repro_torch.mapspace.search",
+                 "repro_torch.mapspace.codse", "repro_torch.obs.env",
+                 "repro_torch.api.spec", "repro_torch.api.report",
+                 "repro_torch.api.session", "repro_torch.launch.query",
+                 "repro_torch.launch.mapsearch"):
         assert name in MODULES
 
 
@@ -245,3 +249,43 @@ def test_mapping_search_runs_on_cpu_on_request(no_cuda):
     ev = mapspace.evaluate_genes(op, space, mapspace.enumerate_genes(space)[:8],
                                  num_pes=256, noc_bw=32.0, device="cpu")
     assert ev.run.n_devices == 1 and len(ev.top) == 8
+
+
+def _front_door_case():
+    from repro_torch.api import Hardware, Query, SearchSpec, Workload
+    op, space = _map_case()
+    q = Query(Workload.of_layer(op), Hardware(),
+              SearchSpec(budget=16, dims=("K", "C"), cluster=False))
+    grid = Query(q.workload, Hardware(pe_range=(8, 16), bw_range=(1.0,)),
+                 q.search)
+    return op, q, grid
+
+
+def test_front_door_raises_without_device(no_cuda):
+    from repro_torch.api import Session
+    from repro_torch.launch import mapsearch
+    op, q, grid = _front_door_case()
+    for query in (q, grid):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Session().run(query)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mapspace.co_search(op, mapping_budget=16,
+                           cfg=DSEConfig(pe_range=(8,), bw_range=(1.0,)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mapsearch.main(["--model", "vgg16", "--layer", "12",
+                        "--budget", "16", "--cache-dir", ""])
+
+
+def test_front_door_runs_on_cpu_on_request(no_cuda, capsys):
+    from repro_torch.api import Session
+    from repro_torch.launch import mapsearch
+    op, q, grid = _front_door_case()
+    s = Session(device="cpu")
+    assert np.isfinite(s.run(q).best["value"])
+    assert s.run(grid).best["per_objective"]["edp"] is not None
+    co = mapspace.co_search(op, mapping_budget=16, device="cpu",
+                            cfg=DSEConfig(pe_range=(8,), bw_range=(1.0,)))
+    assert co.n_evaluated == 16 + len(co.dse)
+    mapsearch.main(["--model", "vgg16", "--layer", "12", "--budget", "16",
+                    "--cache-dir", "", "--device", "cpu"])
+    assert "best edp = " in capsys.readouterr().out
