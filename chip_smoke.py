@@ -47,6 +47,20 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    at rtol 1e-6, top-k swaps only within 1e-6 ties); wall, mappings/s or
    designs/s and the phase timing; ``Session.run_search`` bit-equal to
    ``search_impl`` on phase 5's space; the three launch counts 0;
+5c. whole-network search and ``run_many`` (``repro_torch.netspace``, no
+   hand kernel on this path): vgg16 at full width and depth (16 layers, 12
+   unique shapes, 2 op-classes) through the CLIs' own queries —
+   ``mapsearch --model vgg16 --layer all``'s 16-query batch through
+   ``Session.run_many`` (coalesced, cold then warm, then
+   ``coalesce=False``, which must give the same answers), ``netsearch
+   --model vgg16`` (pes 256, bw 32, EDP, budget 512 per unique shape,
+   frontier_k 8, fuse and reconfig on, block 1024; warm) and its
+   ``--co-dse`` query (the 16 x 16 grid, frontier_k 4); each report held against the JAX
+   package's (``tests/data/torch_netsearch_fixture.json``: points,
+   segments and genes identical, values at rtol 1e-6); wall, mappings/s or
+   designs/s end to end and warm-up passes; one warm ``network`` query
+   under ``torch.profiler`` (idle share, kernels and host-to-device copies
+   per ``evaluate_rows`` chunk); the three launch counts 0;
 6. ``flash_attention`` against its plain version (``attention_ref``) with
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
    the SIMT kernel) and bf16 (2e-2, the wgmma kernel), then at the LLM
@@ -93,8 +107,8 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    under ``torch.profiler``.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
-one timed pass of the paper-scale sweep; the mapping search and the front
-door, which must launch none; one ``loss_fn`` forward of each model; each
+one timed pass of the paper-scale sweep; the mapping search, the front
+door and the network search, which must launch none; one ``loss_fn`` forward of each model; each
 serving run) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
@@ -557,19 +571,26 @@ def ranking(r) -> list:
     return [(tuple(e["point"]), e["value"], e["stats"]) for e in r.top_k]
 
 
-def profile_search(fn, label: str, device) -> None:
+def profile_search(fn, label: str, device, tag: str = "mapsearch-profile",
+                   host: bool = True) -> None:
     """One warm search under ``torch.profiler``: wall, the card's busy time
     and idle share, kernels and host-to-device copies per chunk (a chunk
     is one dispatch of the reduced evaluator, counted by the
-    ``universal.warm_hits`` counter), the top device kernels and the top
-    host operators by self time."""
+    ``universal.warm_hits`` counter, which the network evaluator's
+    ``evaluate_rows`` chunks count too), the top device kernels and the
+    top host operators by self time (with ``host``: recording the host's
+    operators costs the profiler's post-processing seconds, so a caller
+    after the device side alone records only the card's activity); each
+    line starts with ``[tag]``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import obs
     def hits() -> float:
         return sum(obs.metrics().counters("universal.warm_hits").values())
     h0 = hits()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] if device.type == "cuda" else []
+    if host or not activities:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         sync(device)
@@ -581,7 +602,7 @@ def profile_search(fn, label: str, device) -> None:
     h2d = [e for e in dev if "HtoD" in e.name]
     copies = [e for e in dev if "Memcpy" in e.name or "Memset" in e.name]
     kernels = len(dev) - len(copies)
-    log(f"[mapsearch-profile] {label}: wall {wall:.4f} s profiled; device "
+    log(f"[{tag}] {label}: wall {wall:.4f} s profiled; device "
         f"busy {busy_s:.6f} s: idle share {1 - busy_s / wall:.4f}; "
         f"{chunks} chunks, {kernels} kernels ({kernels / max(chunks, 1):.1f}"
         f" a chunk), {len(h2d)} host-to-device copies "
@@ -594,12 +615,14 @@ def profile_search(fn, label: str, device) -> None:
         s[1] += e.time_range.elapsed_us()
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                 )[:6]:
-        log(f"[mapsearch-profile]   device {us / 1e3:.3f} ms "
+        log(f"[{tag}]   device {us / 1e3:.3f} ms "
             f"({us / 1e6 / max(busy_s, 1e-12):.4f} of busy) in {n} x "
             f"{name[:70]}")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    for e in host[:8]:
-        log(f"[mapsearch-profile]   host self "
+    if not host:
+        return
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in ops[:8]:
+        log(f"[{tag}]   host self "
             f"{e.self_cpu_time_total / 1e3:.3f} ms in {e.count} x "
             f"{e.key[:70]}")
 
@@ -758,6 +781,125 @@ def phase_front_door(device, cases=FRONT_DOOR_CASES, card: str = "") -> None:
           "for bit")
     log(f"[front-door] Session.run_search on {MAPSEARCH_CASES[0]}: bit-equal "
         f"to search_impl ({a.n_evaluated} mappings, best {a.best_value!r})")
+
+
+# ----------------------------------------------------------------------
+# Whole-network search and run_many (repro_torch.netspace): no hand kernel
+# ----------------------------------------------------------------------
+
+NETSEARCH_FIXTURE = ROOT / "tests" / "data" / "torch_netsearch_fixture.json"
+
+
+def phase_netsearch(device, card: str = "") -> None:
+    """vgg16 at full width and depth (16 layers, 12 unique shapes, 2
+    op-classes) through the port's CLIs' own queries, on ``device``:
+    ``mapsearch --model vgg16 --layer all``'s batch (16 layer queries,
+    budget 1000, top-k 5) through ``Session.run_many``, coalesced (cold,
+    then warm), then with ``coalesce=False``; ``netsearch --model
+    vgg16``'s ``network`` query (pes 256, bw 32, EDP, budget 512 per
+    unique shape, frontier_k 8, fuse and reconfig on, block 1024; warm:
+    the batch warmed its op-classes' evaluators) and ``netsearch --model
+    vgg16 --co-dse``'s ``network_codse`` query (the 16 x 16 grid,
+    frontier_k 4).  Each report is held against the JAX
+    package's (``tests/data/torch_netsearch_fixture.json``: the same
+    fingerprints; points, segments and genes identical, values at rtol
+    1e-6); ``coalesce=False`` must give the coalesced answers.  Wall,
+    mappings/s (designs/s) end to end and warm-up passes are printed; then
+    one warm ``network`` query under ``torch.profiler``.  No hand-written
+    kernel is on this path (the reference's has no Pallas kernel
+    either)."""
+    from repro_torch.api import Session, select_layers
+    from repro_torch.core import dnn_models
+    from repro_torch.launch import mapsearch, netsearch
+    fx = _load_script("make_front_door_fixture")
+    want = json.loads(NETSEARCH_FIXTURE.read_text())["cases"]
+    on = f" ({card})" if device.type == "cuda" and card else ""
+    net_q, co_q = netsearch.network_queries(netsearch.build_parser()
+                                            .parse_args(["--model", "vgg16",
+                                                         "--co-dse"]))
+    session = Session(cache_dir=None, device=device)
+
+    def held(label: str, rep, ref: dict) -> int:
+        try:
+            return fx.compare_reports(rep.to_json(), ref)
+        except AssertionError as e:
+            raise SmokeError(f"{label} report vs JAX: {e}") from e
+
+    case = want["run_many"]
+    args = mapsearch.build_parser().parse_args(["--model", "vgg16",
+                                                "--layer", "all"])
+    qs = mapsearch.layer_queries(
+        select_layers(dnn_models.MODELS[args.model](), args.layer), args)
+    check([q.fingerprint() for q in qs] == case["fingerprints"],
+          "run_many: the mapsearch CLI's --layer all batch is not the "
+          "fixture's")
+    answers = []
+    # first in the phase, so its first batch is the cold one: the batch's
+    # family spaces and the network queries' share their op-classes'
+    # evaluators (the same first layers, the same block)
+    for tag, coalesce in (("cold", True), ("warm", True),
+                          ("coalesce=False", False)):
+        t0 = time.perf_counter()
+        reps = session.run_many(qs, coalesce=coalesce)
+        sync(device)
+        wall = time.perf_counter() - t0
+        batch = session.last_batch
+        n = sum(r.n_evaluated for r in reps)
+        if coalesce:
+            check(fx.batch_stats(batch) == case["batch"], f"run_many: "
+                  f"batch {fx.batch_stats(batch)}, not {case['batch']}")
+            check(batch["n_compiles"] <= min(batch["n_families"],
+                                             batch["compile_budget"]),
+                  f"run_many: {batch['n_compiles']} warm-up passes over "
+                  f"{batch['n_families']} families")
+            swaps = sum(held(f"run_many {r.name}", r, w)
+                        for r, w in zip(reps, case["reports"]))
+        else:
+            check([r.results_json() for r in reps] == answers[0],
+                  "run_many: coalesce=False differs from the coalesced "
+                  "answers")
+            swaps = 0
+        answers.append([r.results_json() for r in reps])
+        log(f"[netsearch] run_many vgg16 --layer all {tag} on "
+            f"{device.type}: {len(reps)} queries, {n} mappings in "
+            f"{batch['n_families']} family passes; reports as the JAX "
+            f"package's ({swaps} tied swaps); wall {wall:.4f} s, "
+            f"{n / wall:.6g} mappings/s end to end; warm-up passes "
+            f"{batch['n_compiles']} of budget {batch['compile_budget']} "
+            f"({batch['compile_s']} s), encode {batch['encode_s']} s, eval "
+            f"{batch['eval_s']} s{on}")
+    for name, q in (("network", net_q), ("network_codse", co_q)):
+        check(q.kind == name and q.fingerprint() == want[name]["fingerprint"],
+              f"{name}: kind {q.kind}, fingerprint {q.fingerprint()}, not "
+              f"the fixture's {want[name]['fingerprint']}")
+        for tag in ("warm",):
+            t0 = time.perf_counter()
+            rep = session.run(q)
+            sync(device)
+            wall = time.perf_counter() - t0
+            swaps = held(name, rep, want[name]["report"])
+            what = "mappings" if name == "network" else "designs"
+            b = rep.best if name == "network" else rep.best["schedule"]
+            log(f"[netsearch] {name} vgg16 {tag} on {device.type}: "
+                f"{rep.n_evaluated} {what} evaluated, network EDP "
+                f"{b['edp']!r}, cost {b['cost']!r}, segments "
+                f"{len(b['segments'])}, reconfigs {b['n_reconfigs']}"
+                + (f", {rep.extras['n_valid']} of {rep.extras['n_hw']} "
+                   f"designs valid, Pareto front of {len(rep.pareto)}"
+                   if name == "network_codse" else "")
+                + f"; report as the JAX package's ({swaps} tied swaps); "
+                f"wall {wall:.4f} s, {rep.n_evaluated / wall:.6g} {what}/s "
+                f"end to end; warm-up passes {rep.n_compiles} "
+                f"({rep.compile_s:.4f} s), encode {rep.encode_s:.4f} s, "
+                f"eval {rep.eval_s:.4f} s; timing "
+                f"{json.dumps(rep.extras['timing'])}{on}")
+
+    n_net = want["network"]["report"]["n_evaluated"]
+    profile_search(lambda: session.run(net_q),
+                   f"network vgg16 warm, {n_net} mappings", device,
+                   tag="netsearch-profile", host=False)
+
+
 
 
 def fp32_ops_per_design(T) -> int:
@@ -1366,6 +1508,18 @@ def main() -> int:
     log(f"[launches] front door: maestro_eval {fd[0]}, flash_attention "
         f"{fd[1]}, linear_scan {fd[2]} (no hand kernel on this path)")
     check(fd == (0, 0, 0), f"the front door launched hand kernels {fd}")
+    maestro_eval.launches = flash_attention.launches = 0
+    linear_scan.launches = 0
+    t_ns = time.perf_counter()
+    phase_netsearch(device, card=card)
+    log(f"[netsearch] phase {time.perf_counter() - t_ns:.1f} s")
+    ns_l = (maestro_eval.launches, flash_attention.launches,
+            linear_scan.launches)
+    log(f"[launches] network search and run_many: maestro_eval {ns_l[0]}, "
+        f"flash_attention {ns_l[1]}, linear_scan {ns_l[2]} (no hand kernel "
+        f"on this path)")
+    check(ns_l == (0, 0, 0), f"the network search launched hand kernels "
+          f"{ns_l}")
 
     name = torch.cuda.get_device_name(0)
     records = [kernel_record(tables, device, launches,

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Write the JAX package's front-door reports that the PyTorch port is held
-against: ``tests/data/torch_front_door_fixture.json``.
+against: ``tests/data/torch_front_door_fixture.json`` and, with ``--set
+netsearch``, ``tests/data/torch_netsearch_fixture.json``.
 
     PYTHONPATH=src python3 scripts/make_front_door_fixture.py [--out PATH]
         [--cases NAME ...]
     PYTHONPATH=src python3 scripts/make_front_door_fixture.py \\
-        --queries QUERIES.json --out REPORTS.json
+        --set netsearch [--out PATH] [--cases NAME ...]
+    PYTHONPATH=src python3 scripts/make_front_door_fixture.py \\
+        --queries QUERIES.json [--batch] --out REPORTS.json
 
 Each case is one ``repro.api.Session(cache_dir=None).run(query)`` call on
 vgg16-conv13 (K=C=512, 14x14 outputs, 3x3): ``layer``, a mapping search of
@@ -19,9 +22,22 @@ and ``tests/test_torch_api.py`` read it back and hold the port's reports
 to it with ``compare`` (points identical, values at rtol 1e-6, top-k
 swaps only within 1e-6 ties).
 
+The ``netsearch`` set holds vgg16 at full width and depth (16 layers, 12
+unique shapes, 2 op-classes) through three workloads, each at its CLI's
+defaults: ``network``, the query of ``launch/netsearch.py --model vgg16``
+(pes 256, bw 32, EDP, budget 512 per unique shape, uniform, frontier_k 8,
+fuse and reconfig on, block 1024); ``network_codse``, the second query of
+``netsearch --model vgg16 --co-dse`` (the 16 x 16 grid, pes 32..512 step
+32, bw 4..64 step 4, frontier_k 4); and ``run_many``, the batch of
+``launch/mapsearch.py --model vgg16 --layer all`` (16 layer queries,
+budget 1000, top-k 5, pes 256, bw 32, EDP), answered coalesced by
+``Session.run_many``.  ``chip_smoke.py::phase_netsearch`` and
+``tests/test_torch_netspace.py`` read it back.
+
 ``--queries`` runs a JSON list of query dicts instead and writes their
 reports as a JSON list (the CPU tests hold the port's session to the
-reference this way).
+reference this way); with ``--batch`` the list is answered as one
+``Session.run_many`` batch, as ``launch/query.py --file`` answers it.
 
 The reference runs on the CPU with XLA's CPU code generation capped at
 AVX (``--xla_cpu_max_isa=AVX``, set here before JAX loads), as
@@ -62,6 +78,42 @@ CASES = {
                    "joint_genes": 32, "block": 1024}},
 }
 
+# the vgg16 network workloads (``--set netsearch``): the netsearch CLI's
+# defaults, written out in full as the CLI's ``Query.describe()`` gives
+# them, and the mapsearch CLI's ``--layer all`` batch, built per layer by
+# ``layer_batch``
+_NET_HW = {"num_pes": 256, "noc_bw": 32.0, "reconfig_latency": 0.0,
+           "dram_bw": 16.0, "dram_energy_pj": 100.0}
+_NET_SEARCH = {"objective": "edp", "budget": 512, "strategy": "auto",
+               "seed": 0, "top_k": 8, "frontier_k": 8, "fuse": True,
+               "reconfig": True, "composer": "auto",
+               "budget_policy": "uniform", "cluster": True, "block": 1024,
+               "pipeline": "gene", "multicast": True,
+               "spatial_reduction": True, "codse_top_k": 4,
+               "joint_genes": 0}
+NETSEARCH_CASES = {
+    "network": {
+        "workload": {"model": "vgg16"}, "hardware": _NET_HW,
+        "search": _NET_SEARCH},
+    "network_codse": {
+        "workload": {"model": "vgg16"},
+        "hardware": dict(_NET_HW, pe_range=list(range(32, 513, 32)),
+                         bw_range=[float(b) for b in range(4, 65, 4)]),
+        "search": dict(_NET_SEARCH, frontier_k=4)},
+    "run_many": {
+        "model": "vgg16", "layer": "all",
+        "hardware": {"num_pes": 256, "noc_bw": 32.0},
+        "search": {"objective": "edp", "budget": 1000, "strategy": "auto",
+                   "seed": 0, "top_k": 5, "population": None,
+                   "cluster": True, "dims": None, "l1_prune_kb": None,
+                   "l2_prune_kb": None, "block": 1024, "pipeline": "gene",
+                   "codse_top_k": 4, "joint_genes": 0}},
+}
+SETS = {"front_door": (CASES, OUT),
+        "netsearch": (NETSEARCH_CASES,
+                      ROOT / "tests" / "data" /
+                      "torch_netsearch_fixture.json")}
+
 # report fields that time the run, not answer it
 VOLATILE = ("timing", "rates", "compile_s", "eval_s", "encode_s",
             "elapsed_s", "n_compiles", "designs_per_s")
@@ -76,6 +128,18 @@ def query_json(case: dict, dse_config) -> dict:
         if hw.get(k) == "default":
             hw[k] = list(getattr(dse_config(), k))
     return q
+
+
+def layer_batch(case: dict, api, zoo) -> list:
+    """A ``run_many`` case's queries, one per selected layer, made by the
+    given package's ``api`` and ``core.dnn_models`` as the mapsearch CLI
+    makes them (``Workload.of_layer`` of each layer; such a workload's
+    JSON names its layer and does not rebuild it, so the fixture keeps
+    each query's ``describe()`` and fingerprint)."""
+    hw = api.Hardware.from_json(case["hardware"])
+    spec = api.SearchSpec.from_json(case["search"])
+    layers = api.select_layers(zoo.MODELS[case["model"]](), case["layer"])
+    return [api.Query(api.Workload.of_layer(op), hw, spec) for op in layers]
 
 
 def comparable(report: dict) -> dict:
@@ -149,10 +213,18 @@ def compare_ranking(got: list, want: list, rtol: float = RTOL,
 
 def compare_reports(got: dict, want: dict, rtol: float = RTOL) -> int:
     """A port report's JSON against the reference's, field by field
-    (``comparable`` slices of both), with the top-k (and a layer report's
-    best) held by ``compare_ranking``.  Returns the tied swaps."""
+    (``comparable`` slices of both), with a top-k of points (and a layer
+    report's best) held by ``compare_ranking``.  Returns the tied
+    swaps."""
     got, want = comparable(got), comparable(want)
-    swaps = compare_ranking(got.pop("top_k"), want.pop("top_k"), rtol)
+    g_top, w_top = got.pop("top_k"), want.pop("top_k")
+    if w_top and "point" not in w_top[0]:
+        # a network co-DSE's top-k: designs re-composed by the DP, each
+        # held field by field
+        compare(g_top, w_top, rtol, "top_k")
+        swaps = 0
+    else:
+        swaps = compare_ranking(g_top, w_top, rtol)
     if want["kind"] == "layer" and swaps:
         # a tie at the top: the best is the top-k's first entry
         g, w = got.pop("best"), want.pop("best")
@@ -162,27 +234,47 @@ def compare_reports(got: dict, want: dict, rtol: float = RTOL) -> int:
     return swaps
 
 
-def run_queries(queries: list[dict]) -> list[dict]:
+def run_queries(queries: list[dict], batch: bool = False) -> list[dict]:
     """The JAX package's reports (JSON) for the given query dicts, in this
-    process."""
+    process: one ``Session.run`` each, or with ``batch`` one
+    ``Session.run_many`` over all of them."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro.api import Query, Session
     session = Session(cache_dir=None)
+    qs = [Query.from_json(d) for d in queries]
+    if batch:
+        return [r.to_json() for r in session.run_many(qs)]
     out = []
-    for d in queries:
-        q = Query.from_json(d)
+    for q in qs:
         out.append(session.run(q).to_json())
         print(f"{q.kind} {q.fingerprint()}", file=sys.stderr)
     return out
 
 
+def batch_stats(last_batch: dict) -> dict:
+    """The deterministic part of ``Session.last_batch``."""
+    return {k: last_batch[k] for k in ("n_queries", "n_coalesced",
+                                       "coalesce", "n_families",
+                                       "compile_budget")}
+
+
 def run_case(name: str) -> dict:
     sys.path.insert(0, str(ROOT / "src"))
-    from repro.api import Query
+    from repro import api
+    from repro.core import dnn_models
     from repro.core.dse import DSEConfig
-    d = query_json(CASES[name], DSEConfig)
+    case = dict(CASES, **NETSEARCH_CASES)[name]
+    if "layer" in case and "workload" not in case:
+        queries = layer_batch(case, api, dnn_models)
+        session = api.Session(cache_dir=None)
+        reps = session.run_many(queries)
+        return {"queries": [q.describe() for q in queries],
+                "fingerprints": [q.fingerprint() for q in queries],
+                "batch": batch_stats(session.last_batch),
+                "reports": [comparable(r.to_json()) for r in reps]}
+    d = query_json(case, DSEConfig)
     (rep,) = run_queries([d])
-    return {"query": d, "fingerprint": Query.from_json(d).fingerprint(),
+    return {"query": d, "fingerprint": api.Query.from_json(d).fingerprint(),
             "report": comparable(rep)}
 
 
@@ -195,19 +287,30 @@ def _cap_isa() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=str(OUT))
-    ap.add_argument("--cases", nargs="+", default=sorted(CASES),
-                    choices=sorted(CASES))
+    ap.add_argument("--set", default="front_door", choices=sorted(SETS),
+                    help="which fixture file to make (default front_door)")
+    ap.add_argument("--out", default=None,
+                    help="where to write it (default: the set's file)")
+    ap.add_argument("--cases", nargs="+", default=None,
+                    help="make only these cases of the set")
     ap.add_argument("--queries", default=None,
                     help="JSON list of query dicts: write their reports")
+    ap.add_argument("--batch", action="store_true",
+                    help="with --queries: one Session.run_many batch")
     args = ap.parse_args()
     _cap_isa()
-    out = Path(args.out)
+    cases, default_out = SETS[args.set]
+    out = Path(args.out or default_out)
     out.parent.mkdir(parents=True, exist_ok=True)
     if args.queries:
-        reports = run_queries(json.loads(Path(args.queries).read_text()))
+        reports = run_queries(json.loads(Path(args.queries).read_text()),
+                              batch=args.batch)
         out.write_text(json.dumps(reports))
         return
+    args.cases = args.cases or sorted(cases)
+    unknown = set(args.cases) - set(cases)
+    if unknown:
+        ap.error(f"not cases of the {args.set} set: {sorted(unknown)}")
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=len(args.cases), mp_context=ctx) as pool:

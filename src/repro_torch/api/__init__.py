@@ -1,6 +1,6 @@
 """``repro_torch.api`` — the declarative front door to the dataflow cost
-model and the search engines behind it, on PyTorch (the port of
-``repro.api``, layer half):
+model and every search engine behind it, on PyTorch (the port of
+``repro.api``):
 
     from repro_torch.api import (Hardware, Query, SearchSpec, Session,
                                  Workload)
@@ -18,17 +18,26 @@ model and the search engines behind it, on PyTorch (the port of
     s.run(Query(Workload(model="vgg16", layer="conv13"),
                 Hardware(pe_range=(64, 128, 256), bw_range=(8.0, 32.0))))
 
-Network queries and ``run_many`` come with the port's netspace (ROADMAP
-queue 1, item 3).  See ``repro_torch.launch.mapsearch`` for the CLI.
+    # a whole network; grid hardware turns it into a network co-DSE
+    s.run(Query(Workload.of_network("vgg16")))
+
+    # heterogeneous layer queries coalesced into one padded device pass
+    # per (op-class, level-count) family
+    reports = s.run_many([q1, q2, q3, q4, q5, q6])
+
+See ``repro_torch.launch.query`` for the CLI (single queries and
+``--file queries.json`` batch mode).
 """
 from .report import Report
-from .session import Session, default_session, run
+from .session import (PendingReport, Session, default_session, run,
+                      run_many)
 from .spec import (OP_BUILDERS, SCHEMA_VERSION, Hardware, Query,
                    SearchSpec, Workload, op_from_json, queries_from_file,
                    select_layers)
 
 __all__ = [
-    "Hardware", "OP_BUILDERS", "Query", "Report", "SCHEMA_VERSION",
-    "SearchSpec", "Session", "Workload", "default_session",
-    "op_from_json", "queries_from_file", "run", "select_layers",
+    "Hardware", "OP_BUILDERS", "PendingReport", "Query", "Report",
+    "SCHEMA_VERSION", "SearchSpec", "Session", "Workload",
+    "default_session", "op_from_json", "queries_from_file", "run",
+    "run_many", "select_layers",
 ]

@@ -4,9 +4,9 @@ port report diffs field by field with a reference report (provenance and
 ``timing`` aside).
 
 Every engine behind :class:`repro_torch.api.Session` — per-layer mapping
-search and joint co-DSE (the network kinds come with the port's netspace,
-ROADMAP queue 1, item 3) — answers in the SAME shape: a best design, a
-top-k list, an optional Pareto frontier, and one set of counters/rates.
+search, joint co-DSE, whole-network schedule search, the coalesced
+``run_many`` pass — answers in the SAME shape: a best design, a top-k
+list, an optional Pareto frontier, and one set of counters/rates.
 ``to_json()``/``from_json()`` round-trip exactly, and benchmark payloads
 are emitted through the same schema (``Report.bench``).
 """
@@ -134,6 +134,21 @@ class Report:
         return Report(kind="bench", name=name, **kw, extras=payload)
 
     @staticmethod
+    def from_error(query: Query, err: BaseException) -> "Report":
+        """An isolated failure in a batch: ``run_many`` degrades a
+        poisoned coalesced pass to per-query execution and answers the
+        queries that still fail with an ``error``-kind report instead of
+        poisoning the whole batch."""
+        msg = str(err).strip().splitlines()[0] if str(err).strip() else ""
+        return Report(
+            kind="error", objective=query.search.objective,
+            query=query.describe(), tag=query.tag,
+            extras={"error": {"type": type(err).__name__,
+                              "message": msg,
+                              "details": _jsonable(
+                                  getattr(err, "details", {}))}})
+
+    @staticmethod
     def timeout(query: Query, *, deadline_s: float | None,
                 waited_s: float, where: str = "queued") -> "Report":
         """A deadline-expired request's terminal answer: ``extras
@@ -191,5 +206,50 @@ class Report:
                 "designs_per_s": float(co.joint.designs_per_s),
                 "top": _jsonable(co.joint.top[:4]),
             }
+        rep.raw = co
+        return rep
+
+    @staticmethod
+    def from_network(r, query: Query | None = None) -> "Report":
+        """From :class:`repro_torch.netspace.search.NetSearchResult`."""
+        s = r.schedule
+        return Report(
+            kind="network", objective=r.objective, strategy=r.strategy,
+            query=query.describe() if query else None,
+            tag=query.tag if query else None,
+            best={"cost": float(s.cost), "runtime": float(s.runtime),
+                  "energy_pj": float(s.energy_pj),
+                  "edp": float(s.network_edp),
+                  "throughput": float(s.throughput),
+                  "segments": _jsonable(s.segments),
+                  "n_reconfigs": int(s.n_reconfigs),
+                  "per_layer": _jsonable(s.per_layer)},
+            n_evaluated=int(r.n_evaluated), n_compiles=int(r.n_compiles),
+            compile_s=float(r.compile_s), eval_s=float(r.eval_s),
+            encode_s=float(r.encode_s), elapsed_s=float(r.elapsed_s),
+            n_devices=int(r.n_devices),
+            rates={"schedules_per_s": float(r.schedules_per_s)},
+            extras={"composer": r.composer, "n_layers": int(r.n_layers),
+                    "n_unique": int(r.n_unique),
+                    "n_classes": int(r.n_classes),
+                    "budget_policy": getattr(r, "budget_policy",
+                                             "uniform"),
+                    "refined": _jsonable(getattr(r, "refined", []))},
+            raw=r)
+
+    @staticmethod
+    def from_conet(co, query: Query | None = None) -> "Report":
+        """From :class:`repro_torch.netspace.search.CoNetResult`."""
+        rep = Report.from_network(co.search, query)
+        rep.kind = "network_codse"
+        rep.pareto = _jsonable(co.pareto)
+        rep.best = {"per_objective": _jsonable(co.best),
+                    "schedule": rep.best}
+        rep.top_k = _jsonable(co.top)
+        rep.n_evaluated = int(co.n_designs)
+        rep.n_compiles = int(co.n_compiles)
+        rep.elapsed_s = float(co.elapsed_s)
+        rep.extras.update({"n_hw": int(co.n_hw),
+                           "n_valid": int(co.n_valid)})
         rep.raw = co
         return rep

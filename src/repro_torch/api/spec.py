@@ -218,7 +218,7 @@ class Hardware:
     num_pes: int = 256
     noc_bw: float = 32.0
     noc_latency: float = 2.0
-    # network-schedule cost-model fields (repro.netspace)
+    # network-schedule cost-model fields (repro_torch.netspace)
     dram_bw: float = 16.0
     dram_energy_pj: float = 100.0
     reconfig_latency: float = 0.0

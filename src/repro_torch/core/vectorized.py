@@ -216,6 +216,13 @@ class UniversalSpec:
     # divisor-tiled spaces: only the spatial axis can produce a non-empty
     # edge phase, so case enumeration shrinks from 2^A to A+1
     single_edge: bool = False
+    # layer shape as operand (repro_torch.netspace): dim extents come from
+    # an ``ext`` (i, D) operand instead of ``op.dims``, and the cluster
+    # candidates' inner size/offset from ``cin_size``/``cin_off`` (i, K)
+    # operands — so ONE evaluator per op-class covers every layer shape of
+    # a network (the ``cluster`` entries then carry only the inner-dim
+    # identity; their static size/offset fields are ignored)
+    ext_operand: bool = False
 
     @property
     def n_levels(self) -> int:
@@ -236,7 +243,11 @@ def _universal_eval(op: LayerOp, spec: UniversalSpec, hw_static: dict
         xp = hybrid_backend()
         n = ops["pes"].shape[0]
         hw = HWConfig(num_pes=ops["pes"], noc_bw=ops["bw"], **hw_static)
-        ext0 = {d: op.dims[d] for d in spec.dim_names}
+        if spec.ext_operand:
+            ext0 = {d: ops["ext"][:, j]
+                    for j, d in enumerate(spec.dim_names)}
+        else:
+            ext0 = {d: op.dims[d] for d in spec.dim_names}
         sizes: dict = dict(ext0)   # non-searched dims: fully unrolled
         offsets: dict = dict(ext0)
         rank: dict = {}
@@ -271,7 +282,10 @@ def _universal_eval(op: LayerOp, spec: UniversalSpec, hw_static: dict
         if spec.cluster:
             def child_fn(m_unit):
                 results = []
-                for cd, csz, coff in spec.cluster:
+                for ki, (cd, csz, coff) in enumerate(spec.cluster):
+                    if spec.ext_operand:
+                        csz = ops["cin_size"][:, ki]
+                        coff = ops["cin_off"][:, ki]
                     lvl1 = build_dense_level(
                         xp, op, index=1, ext=m_unit, sizes={cd: csz},
                         offsets={cd: coff}, rank={cd: 0}, sp={cd: 1},
@@ -456,6 +470,9 @@ def universal_evaluator(op: LayerOp, spec: UniversalSpec, *,
     ``csize`` (i,), ``csel`` (i, K)
         cluster size and one-hot over ``spec.cluster`` candidates
         (2-level specs only);
+    ``ext`` (i, D), ``cin_size``/``cin_off`` (i, K)
+        the layer's dim extents and resolved cluster inner maps
+        (``spec.ext_operand`` only: one evaluator per op-class);
     ``pes``/``bw`` (i,)
         hardware design point per row (joint mapping × hardware search).
 

@@ -22,10 +22,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.mapsearch --model vgg16 \
         --list-layers
 
-A multi-layer selection (``--layer all`` or a list) answers through
-``Session.run_many``, which comes with the port's netspace (ROADMAP
-queue 1, item 3); until then it raises ``NotImplementedError``, which
-the CLI prints as one line and exits 2.
+    # every layer (or a comma list) as ONE coalesced run_many batch
+    PYTHONPATH=src python -m repro_torch.launch.mapsearch --model vgg16 \
+        --layer all --device cpu
 """
 from __future__ import annotations
 
@@ -36,9 +35,9 @@ from ..core import dnn_models as zoo
 from ..core.dataflows import TABLE3, table3_for_layer
 from ..core.model import analyze
 from ..core.performance import HWConfig
-from .query import (DEFAULT_CACHE, _fmt, add_obs_args, cli_errors,
-                    obs_scope, print_layer_report, print_layer_codse_report,
-                    session_from_args)
+from .query import (DEFAULT_CACHE, LOG, _fmt, add_obs_args, cli_errors,
+                    obs_scope, print_batch_summary, print_layer_report,
+                    print_layer_codse_report, session_from_args)
 
 
 def _table3_values(op, args) -> tuple[float, dict[str, float]]:
@@ -79,14 +78,43 @@ def _spec_from_args(args, op) -> SearchSpec:
         codse_top_k=min(args.top_k, 4), joint_genes=args.joint_genes)
 
 
-def main(argv=None) -> None:
+def layer_queries(picked, args) -> list[Query]:
+    """One layer query per picked layer at the CLI's hardware point."""
+    hw = Hardware(num_pes=args.pes, noc_bw=args.bw)
+    return [Query(Workload.of_layer(op), hw, _spec_from_args(args, op))
+            for op in picked]
+
+
+def _multi_layer(picked, session, args) -> None:
+    """Per-layer best-mapping table for --layer all / comma lists — now
+    answered as ONE coalesced ``run_many`` batch (shared family
+    evaluators) instead of N independent searches."""
+    qs = layer_queries(picked, args)
+    reps = session.run_many(qs)
+    print(f"# {len(picked)} layers, objective={args.objective}, "
+          f"budget={qs[0].search.budget}/layer")
+    print(f"{'layer':28s} {'eval':>6s} "
+          f"{'best ' + args.objective:>12s} {'bestT3':>12s} "
+          f"{'vs T3':>6s}  mapping")
+    for op, r in zip(picked, reps):
+        t3, _ = _table3_values(op, args)
+        imp = (r.best["value"] / t3 if args.objective == "throughput"
+               else t3 / r.best["value"])
+        gene = "-".join(str(g) for g in r.best["point"])
+        print(f"{op.name:28s} {r.n_evaluated:>6d} "
+              f"{_fmt(r.best['value']):>12s} {_fmt(t3):>12s} "
+              f"{imp:>5.2f}x  {gene}")
+    print_batch_summary(session)
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="vgg16",
                     choices=sorted(zoo.MODELS))
     ap.add_argument("--layer", default="0",
-                    help="layer index or name substring (default: 0); "
-                         "'all' and comma-separated lists need run_many, "
-                         "not ported yet")
+                    help="layer index, name substring, 'all', or a "
+                         "comma-separated list (multi-selection prints a "
+                         "per-layer best-mapping table; default: 0)")
     ap.add_argument("--list-layers", action="store_true")
     ap.add_argument("--objective", default="edp",
                     choices=["edp", "energy", "runtime", "throughput"])
@@ -129,7 +157,11 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-dir", default=DEFAULT_CACHE,
                     help="on-disk result cache ('' disables)")
     add_obs_args(ap)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
 
     with cli_errors(), obs_scope(args):
         session = session_from_args(args)
@@ -143,11 +175,12 @@ def main(argv=None) -> None:
         except ValueError as e:
             raise SystemExit(f"{e}; try --list-layers")
         if len(picked) > 1:
-            # the reference answers a selection as one coalesced batch
-            raise NotImplementedError(
-                f"Session.run_many (--layer {args.layer!r} selects "
-                f"{len(picked)} layers) needs the port's netspace, not "
-                "ported yet (ROADMAP queue 1, item 3)")
+            if args.co_dse:
+                LOG.warning("--co-dse applies to single-layer selections "
+                            "only; running the per-layer table instead "
+                            "(pick one layer for the co-DSE)")
+            _multi_layer(picked, session, args)
+            return
         op = picked[0]
         print(f"# layer {op.name} {op.op_type} {op.dims}")
 

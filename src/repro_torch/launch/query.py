@@ -1,13 +1,35 @@
-"""The shared pieces of the declarative query CLI — the part of
-``repro.launch.query`` that ``repro_torch.launch.mapsearch`` imports:
-the logging and error brackets, the observability flags, the layer and
-co-DSE report printers, and the constructors of a ``Session``,
-``Hardware`` and ``SearchSpec`` from parsed flags.
+"""The declarative query CLI — one front door for every search engine, on
+PyTorch (the port of ``repro.launch.query``).  It runs on ``cuda`` unless
+``--device`` names another device; there is no ``--jax-cache-dir`` (the
+port compiles nothing).
 
-The query CLI's own ``main`` (single queries from flags, ``--file``
-batches through ``Session.run_many``) comes with the port's netspace and
-serving tier (ROADMAP queue 1, items 3 and 5).  Every CLI here runs on
-``cuda`` unless ``--device`` names another device.
+Single queries come from flags; batches come from ``--file queries.json``
+(a JSON list of query dicts) and are answered through
+``Session.run_many`` — heterogeneous single-layer queries that share an
+(op-class, level-count) family coalesce into one padded device pass.
+
+Examples::
+
+    # best-EDP mapping for one layer at the Fig. 10 reference design
+    PYTHONPATH=src python -m repro_torch.launch.query --model vgg16 \
+        --layer 12
+
+    # whole-network schedule search (the netsearch path), on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.query --model vgg16 \
+        --device cpu
+
+    # joint mapping x hardware co-DSE over the default grid
+    PYTHONPATH=src python -m repro_torch.launch.query --model vgg16 \
+        --layer 12 --co-dse
+
+    # serving-style batch: mixed layer/network/grid queries, coalesced
+    PYTHONPATH=src python -m repro_torch.launch.query \
+        --file examples/queries.json --out reports.json
+
+``repro_torch.launch.mapsearch`` and ``repro_torch.launch.netsearch`` are
+CLIs over the same backend.  (The reference's ``--profile-dir`` and
+``--flight-dir`` come with the port's profiler hook and flight recorder,
+ROADMAP queue 1, item 4.)
 """
 from __future__ import annotations
 
@@ -17,10 +39,12 @@ import json
 import logging
 import os
 import sys
-from typing import Any
+from typing import Any, Sequence
 
 from .. import obs
-from ..api import Hardware, Report, SearchSpec, Session
+from ..api import (Hardware, Query, Report, SearchSpec, Session, Workload,
+                   queries_from_file)
+from ..core import dnn_models as zoo
 from ..resilience import ReproError, ResilienceConfig
 
 DEFAULT_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
@@ -34,6 +58,15 @@ LOG = logging.getLogger("repro_torch.launch")
 
 def _fmt(v: float) -> str:
     return f"{v:.4g}"
+
+
+def _write_json(path: str, payload: Any) -> None:
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
+    LOG.info("wrote %s", path)
 
 
 def configure_logging(args) -> None:
@@ -115,6 +148,36 @@ def print_layer_report(rep: Report) -> None:
           f"l1={_fmt(s['l1_kb'])}KB l2={_fmt(s['l2_kb'])}KB")
 
 
+def print_network_report(rep: Report) -> None:
+    b = rep.best
+    print(f"# {rep.name}: {rep.extras['n_layers']} layers "
+          f"({rep.extras['n_unique']} unique shapes, "
+          f"{rep.extras['n_classes']} op-classes) "
+          f"strategy={rep.strategy} composer={rep.extras['composer']} "
+          f"budget_policy={rep.extras['budget_policy']}")
+    print(f"# evaluated={rep.n_evaluated} mappings, "
+          f"compiles={rep.n_compiles} ({rep.compile_s:.1f}s), "
+          f"eval={rep.eval_s:.2f}s, wall={rep.elapsed_s:.1f}s, "
+          f"devices={rep.n_devices}")
+    seg_of = {}
+    for si, (a, bnd) in enumerate(b["segments"]):
+        for i in range(a, bnd + 1):
+            seg_of[i] = si
+    print(f"\n{'layer':28s} {'seg':>4s} {'runtime':>12s} "
+          f"{'energy':>12s} {'l2KB':>8s}  mapping")
+    for i, pl in enumerate(b["per_layer"]):
+        gene = "-".join(str(g) for g in pl["gene"])
+        print(f"{pl['layer']:28s} {seg_of[i]:>4d} "
+              f"{_fmt(pl['runtime']):>12s} "
+              f"{_fmt(pl['energy_pj']):>12s} "
+              f"{pl['l2_kb']:>8.1f}  {gene}")
+    print(f"\n# schedule: {len(b['segments'])} fused stacks, "
+          f"{b['n_reconfigs']} reconfigurations")
+    print(f"# totals: runtime={_fmt(b['runtime'])}cy "
+          f"energy={_fmt(b['energy_pj'])}pJ EDP={_fmt(b['edp'])} "
+          f"throughput={b['throughput']:.2f} MACs/cy")
+
+
 def _print_pareto(rep: Report, limit: int = 12) -> None:
     print(f"# frontier ({len(rep.pareto)} points, energy vs throughput):")
     for p in rep.pareto[:limit]:
@@ -137,6 +200,64 @@ def print_layer_codse_report(rep: Report) -> None:
               f"({j['n_valid']} valid) at "
               f"{j['designs_per_s'] / 1e6:.2f}M designs/s")
     _print_pareto(rep)
+
+
+def print_network_codse_report(rep: Report) -> None:
+    print(f"# {rep.name}: network co-DSE over "
+          f"{rep.extras['n_hw']} hw points, {rep.n_evaluated} designs "
+          f"in {rep.elapsed_s:.1f}s; {rep.extras['n_valid']} valid, "
+          f"compiles={rep.n_compiles}")
+    _print_pareto(rep)
+
+
+def print_error_report(rep: Report) -> None:
+    e = rep.extras["error"]
+    print(f"# {rep.name or '(query)'}: FAILED — "
+          f"{e['type']}: {e['message']}")
+
+
+def print_timeout_report(rep: Report) -> None:
+    t = rep.extras["timeout"]
+    budget = "server default" if t["deadline_s"] is None else \
+        f"{t['deadline_s']}s"
+    print(f"# {rep.name or '(query)'}: TIMEOUT — deadline {budget} "
+          f"expired after {t['waited_s']}s ({t['where']}); "
+          f"partial answer only")
+
+
+PRINTERS = {
+    "layer": print_layer_report,
+    "layer_codse": print_layer_codse_report,
+    "network": print_network_report,
+    "network_codse": print_network_codse_report,
+    "error": print_error_report,
+    "timeout": print_timeout_report,
+}
+
+
+def print_report(rep: Report) -> None:
+    PRINTERS[rep.kind](rep)
+
+
+def print_layer_table(reps: Sequence[Report], objective: str) -> None:
+    """Per-layer best-mapping table (``mapsearch --layer all``)."""
+    print(f"{'layer':28s} {'eval':>6s} {'best ' + objective:>14s}  "
+          f"mapping")
+    for rep in reps:
+        gene = "-".join(str(g) for g in rep.best["point"])
+        print(f"{rep.name:28s} {rep.n_evaluated:>6d} "
+              f"{_fmt(rep.best['value']):>14s}  {gene}")
+
+
+def print_batch_summary(session: Session) -> None:
+    b = session.last_batch
+    if not b:
+        return
+    print(f"\n# batch: {b['n_queries']} queries "
+          f"({b['n_coalesced']} coalesced into {b['n_families']} "
+          f"family passes), compiles={b['n_compiles']}"
+          f"/{b['compile_budget']} budget ({b['compile_s']:.1f}s), "
+          f"wall={b['elapsed_s']:.1f}s, devices={b['n_devices']}")
 
 
 # ----------------------------------------------------------------------
@@ -238,3 +359,105 @@ def add_obs_args(ap: argparse.ArgumentParser) -> None:
                          "of the run (open in ui.perfetto.dev)")
     ap.add_argument("--metrics", action="store_true",
                     help="print the obs metrics snapshot (JSON) at exit")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--file", default=None,
+                    help="JSON batch of queries (list of query dicts or "
+                         "{'queries': [...]}); answered via "
+                         "Session.run_many with family coalescing")
+    ap.add_argument("--out", default=None,
+                    help="write reports (+ batch stats) as JSON")
+    ap.add_argument("--no-coalesce", action="store_true",
+                    help="batch mode: run each query separately through "
+                         "the same family spaces (determinism oracle)")
+    ap.add_argument("--model", default=None, choices=sorted(zoo.MODELS))
+    ap.add_argument("--layer", default=None,
+                    help="layer selector (index/substring/'all'/comma "
+                         "list); omit for a whole-network query")
+    ap.add_argument("--list-layers", action="store_true")
+    ap.add_argument("--strategy", default="auto",
+                    choices=["auto", "exhaustive", "random", "greedy",
+                             "genetic"])
+    ap.add_argument("--frontier-k", type=int, default=8)
+    ap.add_argument("--budget-policy", default="adaptive",
+                    choices=["adaptive", "uniform"],
+                    help="network queries: adaptive refines the top "
+                         "network-cost contributors")
+    ap.add_argument("--composer", default="auto",
+                    choices=["auto", "dp", "genetic"])
+    ap.add_argument("--no-fuse", action="store_true")
+    ap.add_argument("--no-reconfig", action="store_true")
+    ap.add_argument("--l2-budget-kb", type=float, default=None)
+    ap.add_argument("--co-dse", action="store_true",
+                    help="sweep the hardware grid (joint co-DSE)")
+    ap.add_argument("--joint-genes", type=int, default=0)
+    add_common_args(ap)
+    args = ap.parse_args(argv)
+
+    with cli_errors(), obs_scope(args):
+        session = session_from_args(args)
+
+        if args.file:
+            # the batch execution path of the serving tier
+            # (serve.coalescer.execute_batch): --file batches are the
+            # offline oracle a coalesced server answers bit-equal to
+            from ..serve import execute_batch
+            queries = queries_from_file(args.file)
+            reports = execute_batch(session, queries,
+                                    coalesce=not args.no_coalesce)
+            for i, rep in enumerate(reports):
+                tag = f" [{rep.tag}]" if rep.tag else ""
+                print(f"\n=== query {i}{tag}: {rep.kind} {rep.name} ===")
+                print_report(rep)
+            print_batch_summary(session)
+            if args.out:
+                payload = {"reports": [r.to_json() for r in reports],
+                           "batch": session.last_batch,
+                           "metrics": session.metrics(),
+                           "environment": obs.environment(
+                               session.device)}
+                _write_json(args.out, payload)
+            return
+
+        if not args.model:
+            ap.error("give --model (single query) or --file (batch)")
+        layers = zoo.MODELS[args.model]()
+        if args.list_layers:
+            for i, l in enumerate(layers):
+                print(f"{i:3d} {l.op_type:10s} {l.name} {l.dims}")
+            return
+
+        from ..api import select_layers
+        hw = hardware_from_args(args)
+        spec = searchspec_from_args(args)
+        if args.layer is None:
+            rep = session.run(Query(Workload.of_network(args.model), hw,
+                                    spec))
+            print_report(rep)
+            out_payload: Any = rep.to_json()
+        elif len(select_layers(layers, args.layer)) == 1:
+            rep = session.run(Query(
+                Workload(model=args.model, layer=args.layer), hw, spec))
+            print_report(rep)
+            out_payload = rep.to_json()
+        else:
+            if args.co_dse:
+                LOG.warning("--co-dse applies to single-layer selections "
+                            "only; running the per-layer batch instead")
+                hw = Hardware(num_pes=args.pes, noc_bw=args.bw)
+            qs = [Query(Workload.of_layer(op), hw, spec)
+                  for op in select_layers(layers, args.layer)]
+            reps = session.run_many(qs)
+            print_layer_table(reps, args.objective)
+            print_batch_summary(session)
+            out_payload = {"reports": [r.to_json() for r in reps],
+                           "batch": session.last_batch,
+                           "metrics": session.metrics()}
+        if args.out:
+            _write_json(args.out, out_payload)
+
+
+if __name__ == "__main__":
+    main()

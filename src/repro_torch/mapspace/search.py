@@ -290,7 +290,7 @@ def static_candidates(space: MapSpace, strategy: str, budget: int,
     otherwise) yields ``sample_genes`` draws from a fresh
     ``default_rng(seed)``.  For an EXPLICIT ``exhaustive``/``random``
     strategy these are the exact candidate sets ``search()`` evaluates
-    under the same seed — the ``repro.netspace`` parity guarantee.  Note
+    under the same seed — the ``repro_torch.netspace`` parity guarantee.  Note
     the ``auto`` fallbacks differ: ``search()`` escalates an oversized
     space to adaptive ``greedy`` refinement, which a one-pass batch
     evaluator cannot replay, so ``auto`` here falls back to ``random``.

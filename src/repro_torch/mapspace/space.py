@@ -306,8 +306,8 @@ def pad_tile_axes(space: MapSpace, counts: Sequence[int]) -> MapSpace:
     """Pad each tile axis to ``counts[ai]`` candidates by repeating its last
     (full-extent) candidate — the same padding rule ``gene_tables`` applies
     internally.  Padded spaces of different layers share identical
-    ``gene_ranges()``, which is what lets ``repro.netspace`` use ONE gene
-    layout (and one compiled executable) across every layer of an op-class;
+    ``gene_ranges()``, which is what lets ``repro_torch.netspace`` use ONE
+    gene layout (and one evaluator) across every layer of an op-class;
     duplicate candidates introduced by padding are analysis-equivalent and
     collapse in ``dedupe_equivalent_genes``."""
     axes = []

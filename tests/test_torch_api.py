@@ -494,19 +494,89 @@ def test_query_deadline_raises_budget_exceeded(session):
     assert session.run(Query.from_json(d)).best
 
 
-def test_what_the_port_has_not_yet_raises(session, conv):
-    chain = Workload.of_layers([conv, ta.fc("api-t-f1", k=16, c=32)])
-    for q in (Query(chain), Query(chain, Hardware(pe_range=(32, 64))),
-              Query(Workload.of_network("vgg16"))):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            session.run(q)
+def test_what_the_port_has_not_yet_raises(conv):
+    """``Query.lint`` needs the port's static analysis (ROADMAP queue 1,
+    item 8).  The network kinds, ``run_many``, ``submit`` and ``flush``
+    are ported (tests below and in tests/test_torch_run_many.py)."""
     q = Query(Workload.of_layer(conv))
-    for call in (lambda: session.run_many([q]), lambda: session.submit(q),
-                 lambda: session.flush()):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-            call()
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         q.lint()
+
+
+# ----------------------------------------------------------------------
+# Network queries, and a batch that isolates its failing query (the
+# batch half's parity with the reference: tests/test_torch_run_many.py)
+# ----------------------------------------------------------------------
+
+CHAIN = [ta.conv2d("api-t-n1", k=8, c=4, y=12, x=12, r=3, s=3),
+         ta.conv2d("api-t-n2", k=12, c=8, y=14, x=14, r=3, s=3),
+         ta.fc("api-t-f1", k=16, c=32)]
+
+
+def test_search_network_parity(session):
+    """The legacy entry point is bit-equal to ``Session.run`` on the
+    equivalent network query."""
+    from repro_torch.netspace import search_network
+    hw = Hardware(num_pes=PES, noc_bw=BW, reconfig_latency=100.0)
+    q = Query(Workload.of_layers(CHAIN), hw,
+              SearchSpec(objective="edp", budget=80, block=BLOCK,
+                         frontier_k=3, budget_policy="uniform"))
+    rep = session.run(q)
+    r = search_network(CHAIN, objective="edp", budget=80, frontier_k=3,
+                       block=BLOCK, hw=hw.hwconfig(),
+                       build_kwargs={"cluster": True}, device="cpu")
+    assert rep.kind == "network"
+    assert rep.best["cost"] == r.schedule.cost
+    assert rep.best["edp"] == r.schedule.network_edp
+    assert [pl["gene"] for pl in rep.best["per_layer"]] == \
+        [list(pl["gene"]) for pl in r.schedule.per_layer]
+    assert rep.n_evaluated == r.n_evaluated
+
+
+def test_network_kinds_round_trip_through_json(session):
+    hw = Hardware(num_pes=PES, noc_bw=BW)
+    spec = SearchSpec(budget=40, block=BLOCK, frontier_k=2,
+                      codse_top_k=2)
+    for q in (Query(Workload.of_layers(CHAIN), hw, spec),
+              Query(Workload.of_layers(CHAIN), Hardware(
+                  num_pes=PES, noc_bw=BW, pe_range=(16, 32),
+                  bw_range=(4.0, 8.0)), spec)):
+        rep = session.run(q)
+        assert rep.kind == q.kind
+        d = rep.to_json()
+        rt = Report.from_json(json.loads(json.dumps(d)))
+        assert rt.to_json() == json.loads(json.dumps(d))
+        assert rt.kind == rep.kind and rt.extras["n_classes"] == 2
+
+
+def test_run_many_isolates_a_failing_query(conv, fast_retry):
+    """A query whose candidates are all pruned fails the coalesced pass;
+    the batch degrades to one query at a time, and that query alone
+    answers as an ``error`` report, as the reference's does."""
+    good = Query(Workload.of_layer(conv), Hardware(num_pes=PES, noc_bw=BW),
+                 SearchSpec(budget=40, block=BLOCK))
+    bad = Query(Workload.of_layer(ta.conv2d("api-t-bad", k=8, c=6, y=12,
+                                            x=12, r=3, s=3)),
+                Hardware(num_pes=PES, noc_bw=BW),
+                SearchSpec(budget=40, block=BLOCK, l1_prune_kb=1e-9))
+    reps = Session(device="cpu", resilience=fast_retry).run_many([good,
+                                                                  bad])
+    assert [r.kind for r in reps] == ["layer", "error"]
+    err = reps[1].extras["error"]
+    ref = japi.Report.from_error(
+        japi.Query.from_json(dict(bad.describe(), workload={"op": dict(
+            CONV, name="api-t-bad", c=6)})),
+        type(err["type"], (Exception,), {"details": err["details"]})(
+            err["message"])).to_json()
+    fx.compare_reports(reps[1].to_json(), ref)
+    assert reps[0].results_json() == \
+        Session(device="cpu").run(good).results_json()
+    assert err["type"] == "DeviceError"
+    assert "search evaluated no mappings" in err["message"]
+    strict = Session(device="cpu", resilience=dataclasses.replace(
+        fast_retry, degrade=False))
+    with pytest.raises(RuntimeError, match="pruning dropped"):
+        strict.run_many([good, bad])
 
 
 # ----------------------------------------------------------------------
@@ -548,16 +618,14 @@ def test_mapsearch_cli_on_cpu(capsys, tmp_path):
 
 
 def test_mapsearch_cli_errors_are_one_line(capsys):
-    with pytest.raises(SystemExit) as ei:
-        mapsearch.main(["--model", "vgg16", "--layer", "all",
-                        "--device", "cpu", "--cache-dir", ""])
-    assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: Session.run_many") and \
-        "queue 1, item 3" in err
-    with pytest.raises(SystemExit) as ei:
-        mapsearch.main(["--model", "vgg16", "--layer", "0",
-                        "--device", "cpu", "--cache-dir", "",
-                        "--pes", "0"])
-    assert ei.value.code == 2
-    assert capsys.readouterr().err.startswith("error: SpecError")
+    """A bad hardware point is one line on stderr and exit code 2, for one
+    layer and for a multi-layer batch (``--layer all``) alike."""
+    for layer in ("all", "0"):
+        with pytest.raises(SystemExit) as ei:
+            mapsearch.main(["--model", "vgg16", "--layer", layer,
+                            "--device", "cpu", "--cache-dir", "",
+                            "--pes", "0"])
+        assert ei.value.code == 2
+        err = capsys.readouterr().err
+        assert err.startswith("error: SpecError") and len(
+            err.strip().splitlines()) == 1

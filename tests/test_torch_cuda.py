@@ -519,3 +519,73 @@ def test_bench_provenance_is_the_runs_device(cuda):
     assert on_card["device_count"] == torch.cuda.device_count()
     on_cpu = Report.bench("x", {}, device="cpu").to_json()["environment"]
     assert on_cpu["backend"] == "cpu" and on_cpu["device_kind"] == "cpu"
+
+
+# ----------------------------------------------------------------------
+# Network queries and run_many on the card (repro_torch.netspace)
+# ----------------------------------------------------------------------
+
+NET_QUERY = {
+    "workload": {"layers": [
+        {"type": "conv2d", "name": "net-c1", "k": 8, "c": 4, "y": 12,
+         "x": 12, "r": 3, "s": 3},
+        {"type": "conv2d", "name": "net-c2", "k": 12, "c": 8, "y": 14,
+         "x": 14, "r": 3, "s": 3},
+        {"type": "fc", "name": "net-f1", "k": 16, "c": 32}]},
+    "hardware": {"num_pes": 48, "noc_bw": 12.0, "reconfig_latency": 100.0},
+    "search": {"objective": "edp", "budget": 150, "block": 64,
+               "frontier_k": 3, "l2_budget_kb": 60.0,
+               "budget_policy": "uniform"}}
+BATCH = [
+    {"workload": {"op": op},
+     "hardware": {"num_pes": 32 + 16 * (i % 2), "noc_bw": 8.0 + 4 * (i % 3)},
+     "search": {"objective": obj, "budget": 50, "block": 32, "top_k": 3}}
+    for i, (op, obj) in enumerate(zip(
+        NET_QUERY["workload"]["layers"] + [
+            {"type": "gemm", "name": "b-g1", "m": 8, "n": 24, "k": 16}],
+        ["edp", "energy", "throughput", "runtime"]))]
+
+
+def _network_queries():
+    from repro_torch.api import Query
+    net = Query.from_json(NET_QUERY)
+    grid = Query.from_json(dict(NET_QUERY, hardware=dict(
+        NET_QUERY["hardware"], pe_range=[16, 32, 64],
+        bw_range=[4.0, 8.0, 16.0])))
+    return net, grid, [Query.from_json(d) for d in BATCH]
+
+
+def test_network_queries_and_run_many_on_cuda_match_cpu(cuda):
+    """``network``, ``network_codse`` and a coalesced ``run_many`` batch
+    on the card (the session's default) and on the CPU: the same reports
+    but for the timings."""
+    from repro_torch.api import Session
+    from torch_scripts import load_script
+    fx = load_script("make_front_door_fixture")
+    net, grid, batch = _network_queries()
+    card, cpu = Session(), Session(device="cpu")
+    for q in (net, grid):
+        fx.compare_reports(card.run(q).to_json(), cpu.run(q).to_json())
+    for a, b in zip(card.run_many(batch), cpu.run_many(batch)):
+        assert a.coalesced and b.coalesced
+        fx.compare_reports(a.to_json(), b.to_json())
+
+
+def test_netspace_stripes_two_shards_on_one_card(cuda, monkeypatch):
+    """The evaluator's striping (per-shard operand copies, an event per
+    shard, per-row outputs), run with two shards on card 0 so that it
+    runs on a one-card machine too: the same answers as one shard."""
+    from repro_torch.api import Session
+    from repro_torch.netspace import evaluator
+    net, _, batch = _network_queries()
+    one = Session(devices=1)
+    want = [one.run(net).results_json()] + \
+        [r.results_json() for r in one.run_many(batch)]
+    monkeypatch.setattr(evaluator, "_devices", lambda device, n_devices:
+                        [torch.device("cuda", 0)] * 2)
+    two = Session()
+    rep = two.run(net)
+    assert rep.n_devices == 2
+    reps = two.run_many(batch)
+    assert two.last_batch["n_devices"] == 2
+    assert [rep.results_json()] + [r.results_json() for r in reps] == want

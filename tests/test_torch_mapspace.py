@@ -107,11 +107,10 @@ def test_dedupe_and_budget_pruning_match_reference(conv_pair):
 
 
 def _assert_same_spec(jspec, tspec):
-    """The port's spec is the reference's without ``ext_operand`` (the
-    reference's netspace sets it; its mapspace never does)."""
-    want = dataclasses.asdict(jspec)
-    assert want.pop("ext_operand") is False
-    assert dataclasses.asdict(tspec) == want
+    """The port's spec is the reference's, ``ext_operand`` off (netspace
+    sets it; mapspace never does)."""
+    assert jspec.ext_operand is False
+    assert dataclasses.asdict(tspec) == dataclasses.asdict(jspec)
 
 
 def test_encode_genes_matches_reference(conv_pair):

@@ -64,7 +64,13 @@ def test_every_module_is_listed():
                  "repro_torch.mapspace.codse", "repro_torch.obs.env",
                  "repro_torch.api.spec", "repro_torch.api.report",
                  "repro_torch.api.session", "repro_torch.launch.query",
-                 "repro_torch.launch.mapsearch"):
+                 "repro_torch.launch.mapsearch",
+                 "repro_torch.netspace.space",
+                 "repro_torch.netspace.composer",
+                 "repro_torch.netspace.evaluator",
+                 "repro_torch.netspace.search",
+                 "repro_torch.serve.coalescer",
+                 "repro_torch.launch.netsearch"):
         assert name in MODULES
 
 
@@ -289,3 +295,60 @@ def test_front_door_runs_on_cpu_on_request(no_cuda, capsys):
     mapsearch.main(["--model", "vgg16", "--layer", "12", "--budget", "16",
                     "--cache-dir", "", "--device", "cpu"])
     assert "best edp = " in capsys.readouterr().out
+
+
+def _net_case():
+    from repro_torch.api import Hardware, Query, SearchSpec, Workload
+    layers = [tdm.vgg16()[12], tdm.vgg16()[13]]
+    spec = SearchSpec(budget=16, frontier_k=2, block=64)
+    net = Query(Workload.of_layers(layers), Hardware(), spec)
+    batch = [Query(Workload.of_layer(op), Hardware(), spec)
+             for op in layers]
+    return layers, net, batch
+
+
+def test_network_search_raises_without_device(no_cuda):
+    from repro_torch import netspace
+    from repro_torch.api import Session
+    from repro_torch.launch import netsearch
+    layers, net, batch = _net_case()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        netspace.search_network(layers, budget=16, frontier_k=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        netspace.co_search_network(layers, DSEConfig(pe_range=(8,),
+                                                     bw_range=(1.0,)),
+                                   budget=16, frontier_k=2)
+    ns = netspace.build_netspace(layers)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        netspace.evaluate_candidates(
+            ns, [mapspace.enumerate_genes(sp)[:4] for sp in ns.spaces],
+            num_pes=256, noc_bw=32.0)
+    s = Session()
+    for call in (lambda: s.run(net), lambda: s.run_many(batch),
+                 lambda: s.run_many([net])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    s.submit(batch[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        s.flush()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        netsearch.main(["--model", "alexnet", "--budget", "16",
+                        "--frontier-k", "2"])
+
+
+def test_network_search_runs_on_cpu_on_request(no_cuda, capsys):
+    from repro_torch import netspace
+    from repro_torch.api import Session
+    from repro_torch.launch import netsearch
+    layers, net, batch = _net_case()
+    r = netspace.search_network(layers, budget=16, frontier_k=2,
+                                device="cpu")
+    assert r.n_devices == 1 and np.isfinite(r.network_edp)
+    s = Session(device="cpu")
+    assert s.run(net).kind == "network"
+    reps = s.run_many(batch)
+    assert [r.kind for r in reps] == ["layer", "layer"]
+    assert all(r.coalesced for r in reps)
+    netsearch.main(["--model", "alexnet", "--budget", "16",
+                    "--frontier-k", "2", "--device", "cpu"])
+    assert "# schedule vs best uniform" in capsys.readouterr().out
