@@ -61,6 +61,18 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    designs/s end to end and warm-up passes; one warm ``network`` query
    under ``torch.profiler`` (idle share, kernels and host-to-device copies
    per ``evaluate_rows`` chunk); the three launch counts 0;
+5d. the serving tier (``repro_torch.serve``, no hand kernel on this
+   path): an in-process ``DSEServer`` on the card takes 5c's 16 vgg16
+   queries as 16 concurrent ``POST /query`` requests (``max_batch`` 16, a
+   30 s flush window: the size fires the flush), answering them in one
+   flush as the JAX package's ``run_many`` (the netsearch fixture), with
+   the ledger ``shed + completed == admitted`` and ``/healthz``,
+   ``/readyz``, ``/metricsz`` (JSON and Prometheus) answering 200; then
+   ``run_loadgen`` (8 clients x 2 requests: every request terminal, no
+   transport error; queries/s, p50, p99); ``srv.drain()`` into a
+   temporary directory (trace and metrics written); ``kill@serve-drain``
+   with the 16 queries parked, and a fresh server recovering them at
+   start, as the fixture; the three launch counts 0;
 6. ``flash_attention`` against its plain version (``attention_ref``) with
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
    the SIMT kernel) and bf16 (2e-2, the wgmma kernel), then at the LLM
@@ -108,14 +120,16 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
-door and the network search, which must launch none; one ``loss_fn`` forward of each model; each
-serving run) and read just after it.
+door, the network search and the serving tier, which must launch none;
+one ``loss_fn`` forward of each model; each serving run) and read just
+after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -902,6 +916,236 @@ def phase_netsearch(device, card: str = "") -> None:
 
 
 
+def wire_query(q) -> dict:
+    """A layer query of the zoo in the serving tier's wire format (the
+    ``examples/queries.json`` schema): the op as its builder's arguments,
+    the hardware and search as ``describe()`` gives them, so that
+    ``Query.from_json`` rebuilds the same query and fingerprint."""
+    d = q.describe()
+    (op,) = q.workload.ops
+    dims = {k.lower(): v for k, v in op.dims.items()}
+    if op.op_type == "CONV2D":
+        wop = {"type": "conv2d", **{k: dims[k] for k in "nkcyxrs"}}
+    elif op.op_type == "FC":
+        wop = {"type": "fc", **{k: dims[k] for k in "nkc"}}
+    else:
+        raise SmokeError(f"no wire form for {op.op_type}")
+    return {"workload": {"op": {"name": op.name, **wop}},
+            "hardware": d["hardware"], "search": d["search"]}
+
+
+def phase_serve(device, card: str = "") -> None:
+    """The serving tier (``repro_torch.serve``, no hand kernel on this
+    path) on ``device``, in process: a ``DSEServer`` with ``max_batch`` 16,
+    a 30 s flush window and a 600 s default deadline takes the 16 queries
+    of ``mapsearch --model vgg16 --layer all`` (phase 5c's batch) as 16
+    concurrent ``POST /query`` requests: one flush must answer them all,
+    each report held against the JAX package's ``run_many`` answers
+    (``tests/data/torch_netsearch_fixture.json``: fingerprints identical,
+    values at rtol 1e-6, top-k swaps only within 1e-6 ties), the ledger
+    ``shed + completed == admitted`` must hold, and ``/healthz``,
+    ``/readyz`` and both ``/metricsz`` formats must answer 200.  Then
+    ``run_loadgen`` (8 clients x 2 requests over the same queries) against
+    a server that flushes every 8: every request terminal, no transport
+    error; queries/s, p50 and p99 printed.  Then ``srv.drain()`` into a
+    temporary directory (``serve-trace.json``, ``serve-metrics.json``
+    there), and ``kill@serve-drain`` on a server holding the 16 queries
+    parked: the drain persists them and dies before its flush, and a
+    fresh server recovers them at start, answering as the fixture."""
+    import asyncio
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.api import Query, Session, select_layers
+    from repro_torch.core import dnn_models
+    from repro_torch.launch import mapsearch
+    from repro_torch.resilience import ResilienceConfig, faultinject
+    from repro_torch.serve import (DSEServer, ServeConfig, http_json,
+                                   http_text, run_loadgen)
+    from repro_torch.serve import drain as drainmod
+    fx = _load_script("make_front_door_fixture")
+    case = json.loads(NETSEARCH_FIXTURE.read_text())["cases"]["run_many"]
+    by_name = {r["name"]: r for r in case["reports"]}
+    on = f" ({card})" if device.type == "cuda" and card else ""
+    args = mapsearch.build_parser().parse_args(["--model", "vgg16",
+                                                "--layer", "all"])
+    qs = mapsearch.layer_queries(
+        select_layers(dnn_models.MODELS[args.model](), args.layer), args)
+    wire = [wire_query(q) for q in qs]
+    check([Query.from_json(w).fingerprint() for w in wire]
+          == case["fingerprints"], "serve: the wire queries are not the "
+          "fixture's --layer all batch")
+    met = obs.metrics()
+    host = "127.0.0.1"
+    session = Session(cache_dir=None, device=device)
+
+    def held(label: str, body: dict) -> int:
+        try:
+            return fx.compare_reports(body, by_name[body["name"]])
+        except (AssertionError, KeyError) as e:
+            raise SmokeError(f"serve: {label} {body.get('name')} vs JAX: "
+                             f"{e}") from e
+
+    def held_slice(label: str, got: dict) -> int:
+        want = by_name[got["name"]]
+        return held(label, {k: got[k] if k in got else want[k]
+                            for k in want})
+
+    async def post_all(srv, timeout: float = 600.0) -> list:
+        return await asyncio.gather(*(http_json(
+            host, srv.port, "POST", "/query", w, timeout=timeout)
+            for w in wire))
+
+    async def until(cond, what: str, limit_s: float = 60.0) -> None:
+        t_end = time.monotonic() + limit_s
+        while not cond():
+            check(time.monotonic() < t_end, f"serve: {what} not met in "
+                  f"{limit_s} s")
+            await asyncio.sleep(0.02)
+
+    async def one_flush() -> None:
+        srv = DSEServer(session, ServeConfig(
+            port=0, exit_on_kill=False, max_batch=16, flush_interval_s=30.0,
+            default_deadline_s=600))
+        await srv.start()
+        try:
+            flushes0 = met.value("serve.flushes")
+            t0 = time.perf_counter()
+            res = await post_all(srv)
+            wall = time.perf_counter() - t0
+            check([st for st, _ in res] == [200] * 16,
+                  f"serve: statuses {[st for st, _ in res]}")
+            check({b["kind"] for _, b in res} == {"layer"},
+                  f"serve: kinds {sorted({b['kind'] for _, b in res})}")
+            n_flush = met.value("serve.flushes") - flushes0
+            check(n_flush == 1, f"serve: {n_flush} flushes, not 1")
+            swaps = sum(held("served", b) for _, b in res)
+            check(fx.batch_stats(session.last_batch) == case["batch"],
+                  f"serve: batch {fx.batch_stats(session.last_batch)}")
+            await until(lambda: srv.coalescer.depth() == 0, "empty queue")
+            codes = {}
+            for path in ("/healthz", "/readyz", "/metricsz"):
+                codes[path], body = await http_json(host, srv.port, "GET",
+                                                    path)
+            snap = body
+            codes["prometheus"], text = await http_text(
+                host, srv.port, "GET", "/metricsz?format=prometheus")
+            check(set(codes.values()) == {200}, f"serve: endpoints {codes}")
+            check("# TYPE serve_requests counter" in text,
+                  "serve: no Prometheus counters")
+            c = snap["counters"]
+            check(c.get("serve.shed", 0) + c["serve.completed"]
+                  == c["serve.admitted"], f"serve: ledger shed "
+                  f"{c.get('serve.shed', 0)} + completed "
+                  f"{c['serve.completed']} != admitted {c['serve.admitted']}")
+            lat = sorted(b["timing"]["wall_s"] for _, b in res)
+            log(f"[serve] 16 concurrent vgg16 --layer all queries on "
+                f"{device.type}: 1 flush of 16 in {wall:.4f} s wall "
+                f"({16 / wall:.6g} queries/s), server walls "
+                f"{lat[0]:.4f}-{lat[-1]:.4f} s; reports as the JAX "
+                f"package's ({swaps} tied swaps); endpoints {codes}; ledger "
+                f"shed {c.get('serve.shed', 0)} + completed "
+                f"{c['serve.completed']} == admitted "
+                f"{c['serve.admitted']}{on}")
+        finally:
+            await srv.stop()
+
+    async def loadgen_and_drain(out_dir: str) -> None:
+        srv = DSEServer(session, ServeConfig(
+            port=0, exit_on_kill=False, max_batch=8, flush_interval_s=30.0,
+            default_deadline_s=600, flight_dir=out_dir))
+        await srv.start()
+        try:
+            lg = await run_loadgen(host, srv.port, wire, clients=8,
+                                   requests_per_client=2, timeout=600.0)
+            s = lg.summary()
+            check(lg.n_terminal == lg.n_requests == 16
+                  and lg.transport_errors == 0 and s["statuses"] == {
+                      "200": 16}, f"serve: loadgen {s}")
+            # 8-query flushes are other batches than the fixture's 16 (the
+            # unit of bit-equality is the flush): kinds only
+            kinds = {body["kind"] for _, body in lg.reports}
+            check(kinds == {"layer"}, f"serve: loadgen kinds {kinds}")
+            log(f"[serve] loadgen 8 clients x 2 requests on "
+                f"{device.type}: {s['n_terminal']} of {s['n_requests']} "
+                f"terminal, {s['transport_errors']} transport errors, "
+                f"statuses {s['statuses']}; {s['queries_per_s']} "
+                f"queries/s, p50 {s['p50_s']} s, p99 {s['p99_s']} s, wall "
+                f"{s['wall_s']} s{on}")
+            await srv.drain()
+        finally:
+            await srv.stop()
+        for name in (drainmod.TRACE_NAME, drainmod.METRICS_NAME):
+            check(os.path.exists(os.path.join(out_dir, name)),
+                  f"serve: drain wrote no {name}")
+        log(f"[serve] drain wrote {drainmod.TRACE_NAME} and "
+            f"{drainmod.METRICS_NAME}")
+
+    async def killed_drain(ck: str, out_dir: str) -> None:
+        # the parked requests end by their 5 s deadline: the 30 s window
+        # and a batch of 64 fire no flush, and the drain dies before its
+        # own
+        sess = Session(cache_dir=None, device=device,
+                       resilience=ResilienceConfig(
+                           ckpt_dir=ck, faults="kill@serve-drain:0"))
+        srv = DSEServer(sess, ServeConfig(
+            port=0, exit_on_kill=False, max_batch=64, flush_interval_s=30.0,
+            default_deadline_s=5.0, grace_s=1.0, flight_dir=out_dir))
+        await srv.start()
+        posts = asyncio.ensure_future(post_all(srv, timeout=120.0))
+        await until(lambda: srv.coalescer.depth() == 16, "16 parked")
+        await srv.drain()
+        check(os.path.exists(drainmod.pending_path(ck)),
+              "serve: the killed drain persisted no pending file")
+        res = await posts
+        check({b["kind"] for _, b in res} == {"timeout"},
+              f"serve: parked answers {sorted({b['kind'] for _, b in res})}")
+
+    async def recovered(ck: str, out_dir: str) -> int:
+        recovered0 = met.value("serve.recovered")
+        srv = DSEServer(Session(cache_dir=None, device=device,
+                                resilience=ResilienceConfig(ckpt_dir=ck)),
+                        ServeConfig(port=0, exit_on_kill=False,
+                                    flight_dir=out_dir))
+        t0 = time.perf_counter()
+        await srv.start()
+        wall = time.perf_counter() - t0
+        try:
+            n = met.value("serve.recovered") - recovered0
+            st, ready = await http_json(host, srv.port, "GET", "/readyz")
+            check(n == 16 and st == 200, f"serve: recovered {n}, /readyz "
+                  f"{st}")
+        finally:
+            await srv.stop()
+        return wall
+
+    tracer = obs.enable_tracing()
+    try:
+        asyncio.run(asyncio.wait_for(one_flush(), 900))
+        with tempfile.TemporaryDirectory() as tmp:
+            asyncio.run(asyncio.wait_for(loadgen_and_drain(tmp), 900))
+            ck = os.path.join(tmp, "ckpt")
+            try:
+                asyncio.run(asyncio.wait_for(killed_drain(ck, tmp), 900))
+            finally:
+                faultinject.clear()
+            wall = asyncio.run(asyncio.wait_for(recovered(ck, tmp), 900))
+            check(not os.path.exists(drainmod.pending_path(ck)),
+                  "serve: recovery left the pending file")
+            rec = json.loads(Path(drainmod.recovered_path(ck))
+                             .read_text())["reports"]
+            swaps = sum(held_slice("recovered", r) for r in rec)
+            log(f"[serve] kill@serve-drain: 16 parked queries persisted, "
+                f"the drain died before its flush, the parked requests "
+                f"answered timeout; a fresh server recovered all 16 at "
+                f"start in {wall:.4f} s, as the JAX package's ({swaps} tied "
+                f"swaps){on}")
+    finally:
+        obs.disable_tracing()
+    n_flush = len(tracer.spans("flush"))
+    check(n_flush == 3, f"serve: {n_flush} flush spans traced, not 3")
+
+
 def fp32_ops_per_design(T) -> int:
     """float32 operations of one design in ``csrc/maestro_eval.cu``,
     counted from the source: each add, sub, mul, div, max, trunc and round
@@ -1520,6 +1764,17 @@ def main() -> int:
         f"on this path)")
     check(ns_l == (0, 0, 0), f"the network search launched hand kernels "
           f"{ns_l}")
+    maestro_eval.launches = flash_attention.launches = 0
+    linear_scan.launches = 0
+    t_sv = time.perf_counter()
+    phase_serve(device, card=card)
+    log(f"[serve] phase {time.perf_counter() - t_sv:.1f} s")
+    sv_l = (maestro_eval.launches, flash_attention.launches,
+            linear_scan.launches)
+    log(f"[launches] serving tier: maestro_eval {sv_l[0]}, flash_attention "
+        f"{sv_l[1]}, linear_scan {sv_l[2]} (no hand kernel on this path)")
+    check(sv_l == (0, 0, 0), f"the serving tier launched hand kernels "
+          f"{sv_l}")
 
     name = torch.cuda.get_device_name(0)
     records = [kernel_record(tables, device, launches,

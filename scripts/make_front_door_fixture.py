@@ -8,6 +8,8 @@ netsearch``, ``tests/data/torch_netsearch_fixture.json``.
     PYTHONPATH=src python3 scripts/make_front_door_fixture.py \\
         --set netsearch [--out PATH] [--cases NAME ...]
     PYTHONPATH=src python3 scripts/make_front_door_fixture.py \\
+        --set serve [--out PATH]
+    PYTHONPATH=src python3 scripts/make_front_door_fixture.py \\
         --queries QUERIES.json [--batch] --out REPORTS.json
 
 Each case is one ``repro.api.Session(cache_dir=None).run(query)`` call on
@@ -33,6 +35,14 @@ fuse and reconfig on, block 1024); ``network_codse``, the second query of
 budget 1000, top-k 5, pes 256, bw 32, EDP), answered coalesced by
 ``Session.run_many``.  ``chip_smoke.py::phase_netsearch`` and
 ``tests/test_torch_netspace.py`` read it back.
+
+The ``serve`` set (``tests/data/torch_serve_fixture.json``) holds one
+case, ``serve``: the three small conv queries of ``tests/test_serve.py``
+(``QUERIES``: budget 32, block 64, top-k 4, pes 48, bw 12; objectives
+edp, runtime and energy) answered as ONE batch by the reference's
+``repro.serve.execute_batch``, the path a server's flush takes.
+``tests/test_torch_serve.py`` holds the port's single flush of the same
+three queries to it.
 
 ``--queries`` runs a JSON list of query dicts instead and writes their
 reports as a JSON list (the CPU tests hold the port's session to the
@@ -109,10 +119,32 @@ NETSEARCH_CASES = {
                    "l2_prune_kb": None, "block": 1024, "pipeline": "gene",
                    "codse_top_k": 4, "joint_genes": 0}},
 }
+
+
+def _wire_conv(tag: str, name: str, *, k: int = 8, c: int = 6,
+               objective: str = "edp") -> dict:
+    """``tests/test_serve.py::wire_conv``'s query (y = x = 10, 3x3)."""
+    return {"tag": tag,
+            "workload": {"op": {"type": "conv2d", "name": name, "k": k,
+                                "c": c, "y": 10, "x": 10, "r": 3,
+                                "s": 3}},
+            "hardware": {"num_pes": 48, "noc_bw": 12.0},
+            "search": {"objective": objective, "budget": 32, "block": 64,
+                       "top_k": 4}}
+
+
+# tests/test_serve.py's QUERIES, answered as one flush
+SERVE_CASES = {
+    "serve": {"flush": [_wire_conv("a", "sv-a"),
+                        _wire_conv("b", "sv-b", k=12, objective="runtime"),
+                        _wire_conv("c", "sv-c", c=8, objective="energy")]},
+}
 SETS = {"front_door": (CASES, OUT),
         "netsearch": (NETSEARCH_CASES,
                       ROOT / "tests" / "data" /
-                      "torch_netsearch_fixture.json")}
+                      "torch_netsearch_fixture.json"),
+        "serve": (SERVE_CASES,
+                  ROOT / "tests" / "data" / "torch_serve_fixture.json")}
 
 # report fields that time the run, not answer it
 VOLATILE = ("timing", "rates", "compile_s", "eval_s", "encode_s",
@@ -263,7 +295,16 @@ def run_case(name: str) -> dict:
     from repro import api
     from repro.core import dnn_models
     from repro.core.dse import DSEConfig
-    case = dict(CASES, **NETSEARCH_CASES)[name]
+    case = dict(CASES, **NETSEARCH_CASES, **SERVE_CASES)[name]
+    if "flush" in case:
+        from repro.serve import execute_batch
+        queries = [api.Query.from_json(d) for d in case["flush"]]
+        session = api.Session(cache_dir=None)
+        reps = execute_batch(session, queries)
+        return {"queries": case["flush"],
+                "fingerprints": [q.fingerprint() for q in queries],
+                "batch": batch_stats(session.last_batch),
+                "reports": [comparable(r.to_json()) for r in reps]}
     if "layer" in case and "workload" not in case:
         queries = layer_batch(case, api, dnn_models)
         session = api.Session(cache_dir=None)

@@ -153,9 +153,11 @@ class Report:
                 waited_s: float, where: str = "queued") -> "Report":
         """A deadline-expired request's terminal answer: ``extras
         ["timeout"]`` marks the report as partial (no best/top_k), with
-        the budget that expired and where the request was when it did.
-        (The reference also writes it to its crash flight recorder, which
-        the port does not have yet: ROADMAP queue 1, item 4.)"""
+        the budget that expired and where the request was when it did."""
+        from .. import obs
+        obs.flight_record("event", "timeout-report", where=where,
+                          deadline_s=deadline_s,
+                          waited_s=round(float(waited_s), 4))
         return Report(
             kind="timeout", objective=query.search.objective,
             query=query.describe(), tag=query.tag,

@@ -408,12 +408,15 @@ class Query:
         return cost
 
     def lint(self) -> None:
-        """Static legality lint — the reference's runs
-        ``repro.analysis.speclint``, which the port does not have yet
-        (ROADMAP queue 1, item 8)."""
-        raise NotImplementedError(
-            "Query.lint needs analysis.speclint, not ported yet "
-            "(ROADMAP queue 1, item 8)")
+        """Static legality lint (``repro_torch.analysis.speclint``):
+        searched dims, space constructibility, and the analytic
+        buffer-budget feasibility bound — raises a one-line
+        :class:`SpecError` with the structured findings attached when the
+        query cannot possibly produce a result, all before any device
+        work.  The serving tier calls this pre-admission so an illegal
+        query is a 400, not a burned flush slot."""
+        from ..analysis.speclint import check_query
+        check_query(self)
 
     def fingerprint(self) -> str:
         """Stable content hash of the FULL query plus the engine/schema

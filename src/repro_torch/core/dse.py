@@ -22,6 +22,7 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..devices import resolve_device
 from .dataflows import table3_for_layer
 from .directives import Dataflow, TemporalMap
@@ -136,15 +137,24 @@ def run_dse(op: LayerOp, df: Dataflow, cfg: DSEConfig | None = None,
                               np.asarray(cfg.bw_range, np.float32),
                               indexing="ij")
     pes, bws = pes_g.ravel(), bw_g.ravel()
+    obs.metrics().inc("dse.designs", len(pes))
     # warm up so the reported rate is the steady-state rate
-    _ = f(pes[:2], bws[:2]).cpu()
+    with obs.span("warmup", engine="dse-grid", op=op.name, df=df.name):
+        _ = f(pes[:2], bws[:2]).cpu()
     feats_out = []
-    t0 = time.perf_counter()
-    for i in range(0, len(pes), cfg.batch):
-        # chunks go to the device as int32 / float32; features come back
-        feats_out.append(f(pes[i:i + cfg.batch],
-                           bws[i:i + cfg.batch]).cpu().numpy())
-    elapsed = time.perf_counter() - t0
+    with obs.span("device-pass", engine="dse-grid", op=op.name,
+                  df=df.name, rows=len(pes)):
+        t0 = time.perf_counter()
+        for i in range(0, len(pes), cfg.batch):
+            # chunks go to the device as int32 / float32; features come
+            # back
+            feats_out.append(f(pes[i:i + cfg.batch],
+                               bws[i:i + cfg.batch]).cpu().numpy())
+        if dev.type == "cuda":
+            # the span and the rate time the card's work, not its enqueue
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+    obs.metrics().observe("dse.grid_s", elapsed)
     feats = np.concatenate(feats_out, axis=0)
     stats = BatchStats.from_features(feats)
 

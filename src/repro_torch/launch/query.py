@@ -27,9 +27,7 @@ Examples::
         --file examples/queries.json --out reports.json
 
 ``repro_torch.launch.mapsearch`` and ``repro_torch.launch.netsearch`` are
-CLIs over the same backend.  (The reference's ``--profile-dir`` and
-``--flight-dir`` come with the port's profiler hook and flight recorder,
-ROADMAP queue 1, item 4.)
+CLIs over the same backend.
 """
 from __future__ import annotations
 
@@ -102,15 +100,34 @@ def cli_errors():
 @contextlib.contextmanager
 def obs_scope(args):
     """Observability bracket around one CLI run: configures logging,
-    turns on the span tracer for ``--trace``, and on exit writes the
-    trace file and prints the metrics snapshot for ``--metrics``.  (The
-    reference's ``--profile-dir`` and ``--flight-dir`` come with the
-    port's profiler hook and flight recorder, ROADMAP queue 1, item 4.)"""
+    turns on the span tracer for ``--trace``, wraps the run in
+    ``torch.profiler`` for ``--profile-dir``, dumps the flight recorder
+    into ``--flight-dir`` on an unhandled crash, and on exit writes the
+    trace file and prints the metrics snapshot for ``--metrics``."""
     configure_logging(args)
     if getattr(args, "trace", None):
         obs.enable_tracing()
     try:
-        yield
+        if getattr(args, "profile_dir", None):
+            with obs.profile_to(args.profile_dir):
+                yield
+        else:
+            yield
+    except (ReproError, SystemExit, KeyboardInterrupt):
+        raise                          # expected exits: no postmortem
+    except BaseException:
+        # unhandled crash: dump the flight-recorder ring next to the
+        # user before the traceback (best effort, never masks it)
+        flight_dir = getattr(args, "flight_dir", None)
+        if flight_dir:
+            try:
+                path = obs.dump_flight(flight_dir, "cli-crash",
+                                       device=getattr(args, "device",
+                                                      None))
+                LOG.warning("wrote flight recorder dump %s", path)
+            except Exception:  # noqa: BLE001 — crash path
+                pass
+        raise
     finally:
         if getattr(args, "trace", None):
             obs.save_trace(args.trace)
@@ -349,7 +366,7 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
 
 def add_obs_args(ap: argparse.ArgumentParser) -> None:
     """The shared observability flags: logging verbosity, span tracing,
-    metrics snapshot."""
+    metrics snapshot, torch profiler, flight-recorder dump directory."""
     ap.add_argument("-v", "--verbose", action="count", default=0,
                     help="debug logging")
     ap.add_argument("-q", "--quiet", action="count", default=0,
@@ -359,6 +376,14 @@ def add_obs_args(ap: argparse.ArgumentParser) -> None:
                          "of the run (open in ui.perfetto.dev)")
     ap.add_argument("--metrics", action="store_true",
                     help="print the obs metrics snapshot (JSON) at exit")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="wrap the run in torch.profiler (a Chrome/"
+                         "Perfetto trace of host operators and CUDA "
+                         "kernels)")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="flight-recorder dump directory: an unhandled "
+                         "crash writes flight-<ts>.json (recent spans/"
+                         "events/errors) there before the traceback")
 
 
 def main(argv=None) -> None:

@@ -1,6 +1,5 @@
 """Lightweight span tracer emitting Chrome/Perfetto ``trace_event`` JSON
-(the port's copy of ``repro.obs.trace``; the crash flight recorder is not
-ported yet, so spans feed two sinks, not three).
+(the port's copy of ``repro.obs.trace``).
 
 One process-wide :class:`Tracer` (enabled on demand) collects *complete*
 events (``"ph": "X"``) so a whole ``Session.run_many`` batch renders as a
@@ -30,6 +29,7 @@ import time
 from typing import Any
 
 from . import context as _context
+from . import flightrec as _flightrec
 
 __all__ = ["NULL_SPAN", "Tracer", "current_tracer", "disable_tracing",
            "enable_tracing", "instant", "save_trace", "span",
@@ -59,10 +59,11 @@ NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One live span feeding up to two sinks on exit: the tracer (a
-    complete ``"X"`` event, stamped with the current request ids) and the
+    """One live span feeding up to three sinks on exit: the tracer (a
+    complete ``"X"`` event, stamped with the current request ids), the
     ambient :class:`~repro_torch.obs.context.PhaseBreakdown` (mapped span
-    names accumulate into timing phases)."""
+    names accumulate into timing phases), and the flight-recorder ring
+    (when span capture is enabled)."""
     __slots__ = ("_tracer", "name", "cat", "args", "_t0_pc")
 
     def __init__(self, tracer: "Tracer | None", name: str, cat: str,
@@ -93,6 +94,10 @@ class _Span:
             phase = _context.PHASE_OF_SPAN.get(self.name)
             if phase is not None:
                 acc.add(phase, dur_s)
+        if _flightrec._SPANS_ON:
+            _flightrec.flight_record("span", self.name,
+                                     dur_s=round(dur_s, 6),
+                                     **(self.args or {}))
         return False
 
     def set(self, **args) -> None:
@@ -216,15 +221,18 @@ def span(name: str, cat: str = "repro", **args: Any):
     """Context manager timing one region.  THE instrumentation entry
     point: ``with span("compile", family=...):``.  Returns the shared
     no-op singleton when every sink is inactive — no tracer, no ambient
-    phase accumulator — so cold hot-path calls stay zero-allocation."""
+    phase accumulator, no flight span capture — so cold hot-path calls
+    stay zero-allocation."""
     t = _TRACER
-    if t is None and _context.current_phases() is None:
+    if t is None and not _flightrec._SPANS_ON \
+            and _context.current_phases() is None:
         return NULL_SPAN
     return _Span(t, name, cat, args or None)
 
 
 def instant(name: str, cat: str = "repro", **args: Any) -> None:
-    """Zero-duration marker event (no-op when tracing is off)."""
+    """Zero-duration marker event (no-op when every sink is off).  Also
+    lands in the flight-recorder ring when span capture is enabled."""
     t = _TRACER
     if t is not None:
         targs = args or None
@@ -233,6 +241,8 @@ def instant(name: str, cat: str = "repro", **args: Any) -> None:
             targs = dict(args)
             targs["rid"] = list(rids) if len(rids) > 1 else rids[0]
         t.instant(name, cat, targs)
+    if _flightrec._SPANS_ON:
+        _flightrec.flight_record("event", name, **args)
 
 
 def save_trace(path: str) -> str | None:

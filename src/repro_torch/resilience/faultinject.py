@@ -21,8 +21,11 @@ Spec grammar (comma-separated directives)::
                          one retry
 
 Sites in the port: ``chunk`` (``mapspace.universal.evaluate_genes``
-device chunks), ``design-chunk`` (``mapspace.codse.joint_sweep``) and
-``checkpoint`` (``SweepCheckpoint.save``).  Every firing increments
+device chunks), ``design-chunk`` (``mapspace.codse.joint_sweep``),
+``checkpoint`` (``SweepCheckpoint.save``), and the serving tier's
+``serve-flush`` (head of every batch execution), ``serve-worker`` (the
+flush worker) and ``serve-drain`` (between a drain's persist and its
+final flush).  Every firing increments
 ``resilience.faults_injected``.
 """
 from __future__ import annotations

@@ -105,9 +105,7 @@ def cancel_scope(deadline_t: float | None):
 def check_cancel(label: str = "chunk") -> None:
     """Raise :class:`BudgetExceeded` when the enclosing
     :func:`cancel_scope` deadline has passed.  Cheap enough to call at
-    every chunk boundary; a no-op outside any scope.  (The reference also
-    writes the cancellation to its crash flight recorder, which the port
-    does not have yet: ROADMAP queue 1, item 4.)"""
+    every chunk boundary; a no-op outside any scope."""
     deadline_t = getattr(_CANCEL, "deadline_t", None)
     if deadline_t is None:
         return
@@ -115,6 +113,9 @@ def check_cancel(label: str = "chunk") -> None:
     if over >= 0.0:
         obs.metrics().inc("resilience.cancelled_chunks")
         obs.instant("cancel", label=label, over_s=round(over, 4))
+        # the flight recorder keeps the cancellation even when no tracer
+        # is live — a postmortem dump shows WHERE the budget expired
+        obs.flight_record("cancel", label, over_s=round(over, 4))
         raise BudgetExceeded(
             f"deadline expired {over:.3f}s ago at {label} boundary",
             budget="deadline_s")

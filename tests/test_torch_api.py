@@ -495,12 +495,17 @@ def test_query_deadline_raises_budget_exceeded(session):
 
 
 def test_what_the_port_has_not_yet_raises(conv):
-    """``Query.lint`` needs the port's static analysis (ROADMAP queue 1,
-    item 8).  The network kinds, ``run_many``, ``submit`` and ``flush``
-    are ported (tests below and in tests/test_torch_run_many.py)."""
-    q = Query(Workload.of_layer(conv))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        q.lint()
+    """What used to raise here is ported: ``Query.lint`` runs the port's
+    ``analysis.speclint`` (held to the reference's findings in
+    tests/test_torch_speclint.py) — a legal query passes, a statically
+    illegal one raises ``SpecError`` with the findings attached.  The
+    network kinds, ``run_many``, ``submit`` and ``flush`` are ported too
+    (tests below and in tests/test_torch_run_many.py)."""
+    Query(Workload.of_layer(conv)).lint()
+    bad = Query(Workload.of_layer(conv), search=SearchSpec(dims=("K", "Z")))
+    with pytest.raises(SpecError) as ei:
+        bad.lint()
+    assert ei.value.details["findings"][0]["code"] == "SPEC-DIMS"
 
 
 # ----------------------------------------------------------------------

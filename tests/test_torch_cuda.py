@@ -589,3 +589,40 @@ def test_netspace_stripes_two_shards_on_one_card(cuda, monkeypatch):
     reps = two.run_many(batch)
     assert two.last_batch["n_devices"] == 2
     assert [rep.results_json()] + [r.results_json() for r in reps] == want
+
+
+SERVE_FIXTURE = "tests/data/torch_serve_fixture.json"
+
+
+def test_server_flush_on_the_card_equals_the_serve_fixture(cuda, tmp_path):
+    """The serving tier on the card: a ``DSEServer`` whose session names
+    ``cuda:0`` (the flush worker makes it its thread's current device)
+    answers ``tests/test_serve.py``'s three queries in one flush as the
+    JAX package's ``execute_batch`` (the committed serve fixture), and a
+    session that names no device serves from the card too."""
+    import asyncio
+    import json
+    from repro_torch.api import Session
+    from repro_torch.serve import DSEServer, ServeConfig, http_json
+    from torch_scripts import ROOT, load_script
+    fx = load_script("make_front_door_fixture")
+    case = json.loads((ROOT / SERVE_FIXTURE).read_text())["cases"]["serve"]
+
+    async def flush(session):
+        srv = DSEServer(session, ServeConfig(
+            port=0, exit_on_kill=False, max_batch=len(case["queries"]),
+            flush_interval_s=30.0, flight_dir=str(tmp_path)))
+        await srv.start()
+        try:
+            return await asyncio.wait_for(asyncio.gather(*(http_json(
+                "127.0.0.1", srv.port, "POST", "/query", q, timeout=120)
+                for q in case["queries"])), timeout=180)
+        finally:
+            await srv.stop()
+    for session in (Session(cache_dir=None, device="cuda:0"),
+                    Session(cache_dir=None)):
+        assert DSEServer(session).device.type == "cuda"
+        res = asyncio.run(flush(session))
+        assert [st for st, _ in res] == [200] * len(res)
+        for (_, body), want in zip(res, case["reports"]):
+            fx.compare_reports(body, want)

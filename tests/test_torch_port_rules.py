@@ -70,7 +70,16 @@ def test_every_module_is_listed():
                  "repro_torch.netspace.evaluator",
                  "repro_torch.netspace.search",
                  "repro_torch.serve.coalescer",
-                 "repro_torch.launch.netsearch"):
+                 "repro_torch.launch.netsearch",
+                 "repro_torch.obs.prom", "repro_torch.obs.flightrec",
+                 "repro_torch.obs.profile",
+                 "repro_torch.analysis.findings",
+                 "repro_torch.analysis.speclint",
+                 "repro_torch.serve.deadline",
+                 "repro_torch.serve.admission",
+                 "repro_torch.serve.drain", "repro_torch.serve.loadgen",
+                 "repro_torch.serve.server", "repro_torch.launch.serve",
+                 "repro_torch.launch.loadgen"):
         assert name in MODULES
 
 
@@ -352,3 +361,36 @@ def test_network_search_runs_on_cpu_on_request(no_cuda, capsys):
     netsearch.main(["--model", "alexnet", "--budget", "16",
                     "--frontier-k", "2", "--device", "cpu"])
     assert "# schedule vs best uniform" in capsys.readouterr().out
+
+
+def test_server_raises_without_device(no_cuda, tmp_path):
+    import asyncio
+    from repro_torch.api import Session
+    from repro_torch.launch import serve
+    from repro_torch.serve import DSEServer, ServeConfig
+    cfg = ServeConfig(port=0, exit_on_kill=False,
+                      flight_dir=str(tmp_path))
+    # at construction, before anything is admitted
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DSEServer(Session(cache_dir=None), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--port", "0", "--cache-dir", "", "--flight-dir",
+                    str(tmp_path)])
+
+    # on the CPU on request: it starts, answers, and stops
+    async def run():
+        srv = DSEServer(Session(cache_dir=None, device="cpu"), cfg)
+        await srv.start()
+        try:
+            from repro_torch.serve import http_json
+            op = {"type": "conv2d", "name": "pr-s", "k": 8, "c": 6,
+                  "y": 10, "x": 10, "r": 3, "s": 3}
+            return await asyncio.wait_for(http_json(
+                "127.0.0.1", srv.port, "POST", "/query",
+                {"workload": {"op": op},
+                 "search": {"objective": "edp", "budget": 16,
+                            "block": 64}}), timeout=60)
+        finally:
+            await srv.stop()
+    st, body = asyncio.run(run())
+    assert st == 200 and body["kind"] == "layer"
