@@ -8,11 +8,12 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure ends the run with a non-zero exit code and no result):
 
 1. require CUDA; print the card's name and power limit; build the
-   ``maestro_eval``, ``flash_attention`` and ``linear_scan`` kernels from
-   their sources under ``src/repro_torch/kernels/*/csrc`` (one ``nvcc``
-   each, all at once) and print the build seconds and ptxas registers and
-   spills; ``cuobjdump -sass`` of the flash library must show HGMMA (wgmma
-   on the tensor cores) and UTMALDG (TMA loads);
+   ``maestro_eval``, ``flash_attention`` (forward and backward, two
+   libraries) and ``linear_scan`` kernels from their sources under
+   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, all at once)
+   and print the build seconds and ptxas registers and spills;
+   ``cuobjdump -sass`` of the flash forward library must show HGMMA
+   (wgmma on the tensor cores) and UTMALDG (TMA loads);
 2. the kernel against its plain PyTorch version on the card, for all 32
    VGG16 × {C-P, X-P} tables: pes 1..16384 × bw {1, 2, 3.5, 8, 64, 128} plus
    4096 random designs each, rtol 1e-6 on all five columns; runtime and macs
@@ -118,11 +119,31 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    and in float32 at S=48 (rel L2 1e-3); one forward and four decode steps
    under ``torch.profiler``.
 
+13. training (``repro_torch.training``, ``ft``, ``checkpoint``): the
+   ``flash_attention`` backward kernel against ``attention_bwd_ref`` (o
+   from the forward kernel; rel L2 of dq, dk, dv within 1e-5 in float32
+   and 2e-2 in bf16, bf16 also against the float32 formulas with the
+   float32 o) at ragged small shapes and olmo-1b's and llama3-8b's; olmo-1b
+   at full width and depth (16 layers, d_model 2048, vocab 50304, bf16,
+   seed 0) trains 3 steps at B=2, S=2048 through ``make_train_step`` and
+   ``FaultTolerantLoop`` (checkpoints off at this size): finite loss and
+   grad_norm, 32 forward and 16 backward flash launches a step (full
+   remat runs each layer's forward again in the backward), tokens/s per
+   step, peak memory, then one step under ``torch.profiler``; one step's
+   loss and gradients on the kernel route against ``attention_ref`` under
+   autograd, in bf16 (loss 1e-3, grad_norm 1e-2 relative) and on a float32
+   copy (loss 1e-5, every gradient leaf 1e-4 rel L2, each printed); a
+   checkpoint round trip of reduced olmo-1b on the card (bit-equal);
+   reduced rwkv6-1.6b training on the card raises (no ``linear_scan``
+   backward kernel, ROADMAP queue 2); then the backward timed at
+   llama3-8b's and olmo-1b's shapes beside its plain version, SDPA's
+   backward (``library_ms``) and the bound.
+
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
 door, the network search and the serving tier, which must launch none;
-one ``loss_fn`` forward of each model; each serving run) and read just
-after it.
+one ``loss_fn`` forward of each model; each serving run; the olmo-1b
+train steps) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -252,8 +273,10 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # ----------------------------------------------------------------------
 
 def phase_build() -> None:
-    """All three kernels, one nvcc each, started together; then the flash
-    library's SASS must hold the tensor-core product and a TMA load."""
+    """All four kernel sources (maestro_eval, the flash forward, linear_scan,
+    the flash backward), one nvcc each, started together; then the flash
+    forward library's SASS must hold the tensor-core product and a TMA
+    load."""
     from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     from repro_torch.kernels import _build
@@ -261,6 +284,8 @@ def phase_build() -> None:
         "repro_torch.kernels.maestro_eval.maestro_eval",
         "repro_torch.kernels.flash_attention.flash_attention",
         "repro_torch.kernels.linear_scan.linear_scan"))]
+    fa = import_module("repro_torch.kernels.flash_attention.flash_attention")
+    srcs.append((fa.BWD_SRC, fa.NVCC_FLAGS))  # the backward, its own library
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as ex:
         done = [ex.submit(_build.build, *sf) for sf in srcs]
@@ -1712,6 +1737,365 @@ def phase_plain_route(cfg, params, device, module, attr: str, kernel, plain,
           "the plain route")
 
 
+# ----------------------------------------------------------------------
+# training: the flash attention backward, olmo-1b train steps
+# ----------------------------------------------------------------------
+
+# flash_attention_bwd vs attention_bwd_ref, rel L2 of dq, dk, dv: float32
+# sums in another order (dq's atomics in a varying one); bf16 rounds the
+# outputs to 8 mantissa bits
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (B, S, Hq, Hkv, D, causal): ragged heads, every head dim, both masks;
+# S = 192 on the SIMT forward (D = 32: the wgmma one's tiles are 128)
+BWD_SHAPES = [(1, 128, 3, 1, 16, True), (2, 128, 6, 2, 64, False),
+              (1, 192, 5, 5, 32, True), (1, 256, 4, 2, 128, False)]
+OLMO_BWD = (2, 2048, 16, 16, 128, True)    # olmo-1b, a train step's shape
+LLAMA_BWD = (2, 2048, 32, 8, 128, True)    # llama3-8b's
+TRAIN_SHAPE = (2, 2048)                    # olmo-1b train steps: B, S
+TRAIN_STEPS = 3
+
+
+def bwd_inputs(shape, dtype, device, seed: int = 0):
+    """q, k, v, the forward kernel's o, and do ~ N(0, 1)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, Hq, Hkv, D, causal = shape
+    q, k, v = qkv((B, S, S, Hq, Hkv, D, causal), dtype, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=device).to(dtype)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    return q, k, v, o, do
+
+
+def phase_flash_bwd_vs_plain(device) -> float:
+    """The backward kernel against ``attention_bwd_ref`` on the same
+    inputs (o from the forward kernel), rel L2 of dq, dk and dv, at
+    ragged small shapes and olmo-1b's and llama3-8b's, float32 and bf16;
+    for bf16 also against the float32 gradient of the bf16 values with
+    the float32 o (the wgmma forward's o has P rounded to bf16: held to
+    the same 2e-2).  Returns the largest absolute error against the plain
+    version."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd)
+    worst = 0.0
+    cases = [(s, dt) for s in BWD_SHAPES + [OLMO_BWD]
+             for dt in (torch.float32, torch.bfloat16)] + [
+        (LLAMA_BWD, torch.bfloat16)]
+    for shape, dt in cases:
+        causal = shape[-1]
+        q, k, v, o, do = bwd_inputs(shape, dt, device)
+        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        sync(device)
+        want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+        errs = [rel_l2(g, w.double()) for g, w in zip(got, want)]
+        ok = all(torch.isfinite(g).all() for g in got)
+        worst = max([worst] + [float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got, want)])
+        line = (f"[flash-bwd-vs-plain] {shape} {str(dt)[6:]}: rel L2 dq "
+                f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (limit "
+                f"{BWD_TOL[dt]})")
+        del want
+        if dt == torch.bfloat16:
+            qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+            o32 = attention_ref(qf, kf, vf, causal=causal)
+            exact = attention_bwd_ref(qf, kf, vf, o32, dof, causal=causal)
+            e32 = [rel_l2(g, w.double()) for g, w in zip(got, exact)]
+            line += (f"; against float32 formulas with the float32 o: dq "
+                     f"{e32[0]:.3g}, dk {e32[1]:.3g}, dv {e32[2]:.3g}")
+            errs += e32
+            del qf, kf, vf, dof, o32, exact
+        log(line)
+        check(ok and max(errs) <= BWD_TOL[dt], f"flash backward {shape} "
+              f"{dt}: rel L2 {errs} beyond {BWD_TOL[dt]}")
+        del q, k, v, o, do, got
+        torch.cuda.empty_cache()
+    return worst
+
+
+def flash_bwd_times(shape, device, name: str) -> dict:
+    """The backward kernel, its plain version and SDPA's backward (through
+    autograd, on the same inputs) at ``shape`` in bf16, and the bound:
+    2.5 x the causal forward's operations over the bf16 tensor-core peak,
+    or the bytes of q, k, v, o, do read and dq, dk, dv written once over
+    the memory rate, whichever is larger."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+    B, S, Hq, Hkv, D, causal = shape
+    q, k, v, o, do = bwd_inputs(shape, torch.bfloat16, device, seed=5)
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do,
+                                             causal=causal), 10)
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do,
+                                                 causal=causal), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 2.5 * 4 * B * Hq * D * pairs
+    nbytes = 2 * (3 * 2 * B * S * Hq * D + 2 * 2 * B * S * Hkv * D)
+    mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
+    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / mem_bw * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"[kernel] flash_attention_bwd {shape} bf16: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.6g} TFLOP/s counted as 2.5 x the forward), "
+        f"plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+        f"{bound:.4f} ms (operations {ops_ms:.4f}: {flops / 1e9:.6g} GFLOP "
+        f"at 989 TFLOP/s; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} MB): "
+        f"{bound / ms:.4f} of the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def flash_bwd_record(device, launches: int, max_abs_err: float,
+                     name: str) -> dict:
+    """Times at llama3-8b's shape (logged) and at olmo-1b's, the train
+    steps' own shape (recorded)."""
+    flash_bwd_times(LLAMA_BWD, device, name)
+    t = flash_bwd_times(OLMO_BWD, device, name)
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "design": "no TPU counterpart (XLA's gradient of the forward): "
+                  "float32 SIMT, lse/delta pass, then per 64-key tile dK, "
+                  "dV in registers and dQ by atomicAdd; times at olmo-1b's "
+                  f"{OLMO_BWD}",
+        "launches": launches, "max_abs_err": max_abs_err, **t,
+    }
+
+
+def tree_items(tree, prefix: str = ""):
+    """(path, leaf) of a nested dict, keys sorted (the leaves' order)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from tree_items(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def phase_train(device, card: str = "", cfg=None):
+    """olmo-1b at full width and depth (16 layers, d_model 2048, vocab
+    50304, bf16) from seed 0: ``TRAIN_STEPS`` steps of ``make_train_step``
+    (default AdamW, full remat) at ``TRAIN_SHAPE`` through
+    ``FaultTolerantLoop``, checkpoints off at this size (a period past the
+    run).  Every step: finite loss and grad_norm, 2 x 16 forward and 16
+    backward flash launches (each layer's forward runs again in the
+    backward).  Tokens/s per step (the first includes warm-up); peak
+    device memory; then one more step under ``torch.profiler``.  Returns
+    (params, launches of the backward, of the forward)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data import batch_for_step
+    from repro_torch.ft import FaultTolerantLoop, FTConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+    from repro_torch.kernels.maestro_eval import maestro_eval
+    from repro_torch.models.param import count_params
+    from repro_torch.models import registry
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    cfg = cfg or REGISTRY["olmo-1b"]
+    B, S = TRAIN_SHAPE
+    tc = TrainConfig()
+    t1 = time.perf_counter()
+    params, opt = init_train_state(cfg, tc, 0, device)
+    sync(device)
+    log(f"[train] {cfg.name} at full width and depth: "
+        f"{count_params(registry.specs(cfg))} parameters drawn on the card "
+        f"in {time.perf_counter() - t1:.2f} s, remat {cfg.remat}, "
+        f"{str(cfg.dtype)[6:]}")
+    step = make_train_step(cfg, tc, device=device)
+    steps = []
+
+    def wrapped(state, batch):
+        p, o = state
+        f0, b0 = flash_attention.launches, flash_attention.bwd_launches
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # waits
+        steps.append((time.perf_counter() - t0, loss, gnorm,
+                      flash_attention.launches - f0,
+                      flash_attention.bwd_launches - b0))
+        return (p, o), m
+
+    def batch_fn(i):
+        return batch_for_step(i, global_batch=B, seq=S, vocab=cfg.vocab)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as d:
+        loop = FaultTolerantLoop(wrapped, Checkpointer(d, keep=1), FTConfig(
+            checkpoint_every=10 ** 9, async_save=False))
+        maestro_eval.launches = linear_scan.launches = 0
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        (params, opt), end = loop.run((params, opt), batch_fn, 0,
+                                      TRAIN_STEPS)
+        launches = (flash_attention.launches, flash_attention.bwd_launches,
+                    maestro_eval.launches, linear_scan.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+    for i, (wall, loss, gnorm, fl, bl) in enumerate(steps):
+        log(f"[train] step {i}: {wall:.4f} s, {B * S / wall:.6g} tokens/s, "
+            f"loss {loss:.6g}, grad_norm {gnorm:.6g}, flash_attention "
+            f"launches {fl} forward, {bl} backward")
+    log(f"[train] {cfg.name} B={B} S={S}: {TRAIN_STEPS} steps through "
+        f"FaultTolerantLoop, {loop.restarts} restarts, stragglers "
+        f"{loop.straggler_steps}; launches: flash_attention {launches[0]} "
+        f"forward, {launches[1]} backward, maestro_eval {launches[2]}, "
+        f"linear_scan {launches[3]}; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; {card}")
+    check(end == TRAIN_STEPS and len(steps) == TRAIN_STEPS,
+          f"the loop ended at step {end} after {len(steps)} steps")
+    check(all(np.isfinite(s[1]) and np.isfinite(s[2]) for s in steps),
+          "a train step's loss or grad_norm is not finite")
+    check(all(s[3:] == (2 * cfg.n_layers, cfg.n_layers) for s in steps),
+          f"flash launches per step {[s[3:] for s in steps]}, not "
+          f"({2 * cfg.n_layers}, {cfg.n_layers})")
+    check(launches[2:] == (0, 0), "training launched maestro_eval or "
+          "linear_scan")
+    batch = batch_fn(TRAIN_STEPS)
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = step(params, opt, batch)
+        float(m["loss"])
+    profile_call(one_step, f"{cfg.name} train step B={B} S={S}", device,
+                 "flash_bwd")
+    del opt
+    torch.cuda.empty_cache()
+    return cfg, params, launches[1], launches[0]
+
+
+def phase_train_plain_route(cfg, params, device, loss_tol: float,
+                            leaf_tol: float | None = None,
+                            norm_tol: float | None = None) -> None:
+    """One step's loss and gradients (``registry.loss_fn`` and
+    ``torch.autograd.grad``) on the kernel route against the route with
+    ``layers.flash_attention`` forced onto ``attention_ref`` under autograd
+    (here only), at ``TRAIN_SHAPE``: the loss within ``loss_tol``
+    relative; every gradient leaf's rel L2 printed and held to
+    ``leaf_tol``, the global norm to ``norm_tol``, where given."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers, registry
+    from repro_torch.optim.adamw import global_norm
+    B, S = TRAIN_SHAPE
+    batch = llm_batch(cfg, device, B, S, seed=3)
+    names = [n for n, _ in tree_items(params)]
+    flat = [p for _, p in tree_items(params)]
+
+    def grads():
+        loss = registry.loss_fn(params, batch, cfg)
+        g = torch.autograd.grad(loss, flat)
+        return float(loss.detach()), g
+
+    bwd0 = flash_attention.bwd_launches
+    loss_k, g_k = grads()
+    check(flash_attention.bwd_launches == bwd0 + cfg.n_layers,
+          "the kernel route did not run the backward kernel once a layer")
+    wrapper = layers.flash_attention
+    layers.flash_attention = attention_ref
+    launches = (flash_attention.launches, flash_attention.bwd_launches)
+    try:
+        loss_p, g_p = grads()
+    finally:
+        layers.flash_attention = wrapper
+    check((flash_attention.launches, flash_attention.bwd_launches)
+          == launches, "the plain route launched a flash kernel")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    nk, np_ = float(global_norm(g_k)), float(global_norm(g_p))
+    nrel = abs(nk - np_) / np_
+    leaf = {n: rel_l2(a, b.double()) for n, a, b in zip(names, g_k, g_p)}
+    log(f"[train-plain-route] {cfg.name} {str(cfg.dtype)[6:]} B={B} S={S} "
+        f"with flash_attention -> attention_ref: loss kernel {loss_k:.8g}, "
+        f"plain {loss_p:.8g}, rel err {rel:.3g} (limit {loss_tol}); "
+        f"grad_norm kernel {nk:.8g}, plain {np_:.8g}, rel err {nrel:.3g}"
+        f"{'' if norm_tol is None else f' (limit {norm_tol})'}")
+    log("[train-plain-route]   rel L2 by leaf: " + ", ".join(
+        f"{n} {e:.3g}" for n, e in leaf.items()) +
+        ("" if leaf_tol is None else f" (limit {leaf_tol})"))
+    check(rel <= loss_tol and (norm_tol is None or nrel <= norm_tol) and
+          (leaf_tol is None or max(leaf.values()) <= leaf_tol),
+          "the kernel route's training gradients disagree with the plain "
+          "route's")
+
+
+def f32_params(tree) -> dict:
+    """A float32 copy of a model's params: leaves that require grad."""
+    return {k: f32_params(v) if isinstance(v, dict) else
+            v.detach().float().requires_grad_(True) for k, v in tree.items()}
+
+
+def phase_train_small(device) -> None:
+    """(d) a checkpoint round trip of reduced olmo-1b's train state on the
+    card (async save, restore onto the card, bit-equal); (e) reduced
+    rwkv6-1.6b training on the card raises the documented error (no
+    ``linear_scan`` backward kernel: ROADMAP queue 2)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import REGISTRY
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.tree import leaves
+    state = init_train_state(REGISTRY["olmo-1b"].reduced(), TrainConfig(), 0,
+                             device)
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d, keep=1)
+        ck.save(7, state, async_save=True)
+        back, manifest = ck.restore(state, device=device)
+    same = all(a.dtype == b.dtype and b.device.type == device.type and
+               torch.equal(a.detach(), b)
+               for a, b in zip(leaves(state), leaves(back)))
+    log(f"[train-ckpt] reduced olmo-1b train state ({len(leaves(state))} "
+        f"leaves) saved async and restored on the card at step "
+        f"{manifest['step']}: bit-equal {same}")
+    check(same and manifest["step"] == 7, "the checkpoint round trip on "
+          "the card is not bit-equal")
+    cfg = REGISTRY["rwkv6-1.6b"].reduced()
+    tc = TrainConfig()
+    params, opt = init_train_state(cfg, tc, 0, device)
+    toks = np.zeros((2, 32), np.int32)
+    try:
+        make_train_step(cfg, tc, device=device)(
+            params, opt, {"tokens": toks, "labels": toks})
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    log(f"[train-rwkv6] reduced rwkv6-1.6b train step on the card raises: "
+        f"{raised!r}")
+    check("queue 2" in raised, "rwkv6 training on the card did not raise "
+          "the documented error")
+
+
+def phase_training(device, card: str, name: str) -> dict:
+    """(a)-(e) of the training slice; returns the backward's record."""
+    t0 = time.perf_counter()
+    bwd_abs = phase_flash_bwd_vs_plain(device)
+    cfg, params, bwd_launches, fwd_launches = phase_train(device, card)
+    phase_train_plain_route(cfg, params, device, loss_tol=1e-3,
+                            norm_tol=1e-2)
+    cfg32 = cfg.replace(dtype=torch.float32)
+    params32 = f32_params(params)
+    del params
+    torch.cuda.empty_cache()
+    phase_train_plain_route(cfg32, params32, device, loss_tol=1e-5,
+                            leaf_tol=1e-4)
+    del params32
+    torch.cuda.empty_cache()
+    phase_train_small(device)
+    record = flash_bwd_record(device, bwd_launches, bwd_abs, name)
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s; flash_attention "
+        f"launches in the train steps: {fwd_launches} forward, "
+        f"{bwd_launches} backward")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1869,6 +2253,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     records.append(scan_record(device, scan_launches, scan_abs, name))
+    records.append(phase_training(device, card, name))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

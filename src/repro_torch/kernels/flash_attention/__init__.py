@@ -1,5 +1,6 @@
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .ops import attention
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
-__all__ = ["flash_attention", "attention", "attention_ref"]
+__all__ = ["flash_attention", "flash_attention_bwd", "attention",
+           "attention_ref", "attention_bwd_ref"]

@@ -14,9 +14,13 @@ kernel (``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
 ``attention_ref``.  Anything the kernel does not take raises, on either
 device: there is no fallback from the card.
 
-The kernel is invisible to autograd, so it refuses inputs that require a
-gradient while grad mode is on (its gradient would otherwise be zero
-without a word).
+Under grad, ``flash_attention`` goes through ``_FlashAttention``, an
+autograd function whose backward is ``flash_attention_bwd``: on CUDA
+tensors the hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a
+library of their own, built the same way), counted in
+``flash_attention.bwd_launches``; on CPU tensors ``attention_bwd_ref``.
+The JAX package has no backward kernel: XLA differentiates through its
+forward.  The backward is not differentiable again.
 """
 from __future__ import annotations
 
@@ -27,10 +31,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
 SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SRC = SRC.with_name("flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64, 128)
@@ -41,6 +48,7 @@ WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these runs the wgmma kernel
 SIMT_TILES = ((64, 64), (128, 64))
 WGMMA_TILES = ((128, 128), (128, 64))
 DTYPES = (torch.float32, torch.bfloat16)
+BWD_TILE = 64  # the backward's q and k tile: Sq and Sk must be multiples
 
 
 def tiles(dtype: torch.dtype, D: int) -> tuple[tuple[int, int], ...]:
@@ -56,6 +64,16 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SRC, NVCC_FLAGS)
     fn = lib.flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load(BWD_SRC, NVCC_FLAGS)
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -102,10 +120,6 @@ def _check(q, k, v, blk_q: int | None,
                          f"multiples of the tiles ({blk_q}, {blk_k})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention has no backward kernel yet: "
-                           "call it under torch.no_grad() or on inputs "
-                           "that do not require grad")
     if q.is_cuda and allowed is WGMMA_TILES and any(
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the wgmma kernel's TMA loads "
@@ -132,8 +146,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, Hq, D) in q's dtype.  float32 or bfloat16, D in 16/32/64/128,
     Sq and Sk multiples of the (blk_q, blk_k) tile, one of
     ``tiles(dtype, D)`` (its first by default), contiguous tensors on one
-    device."""
+    device.  Under grad, with an input that requires it, the call is
+    differentiable through ``flash_attention_bwd``."""
     blk_q, blk_k = _check(q, k, v, blk_q, blk_k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, blk_q, blk_k)
+    return _forward(q, k, v, causal, blk_q, blk_k)
+
+
+def _forward(q, k, v, causal: bool, blk_q: int, blk_k: int) -> torch.Tensor:
+    """The checked forward: the kernel on CUDA tensors, ``attention_ref``
+    on CPU tensors."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
@@ -157,4 +180,91 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward kernel, then
+    ``flash_attention_bwd`` on the saved q, k, v and o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, blk_q, blk_k):
+        o = _forward(q, k, v, causal, blk_q, blk_k)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def _check_bwd(q, k, v, o, do) -> None:
+    """Raises on what the backward kernel does not take."""
+    ts = (q, k, v, o, do)
+    if not all(isinstance(t, torch.Tensor) for t in ts):
+        raise TypeError("flash_attention_bwd takes torch tensors")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("flash_attention_bwd: q, k, v, o and do must be on "
+                         "one device")
+    if q.dtype not in DTYPES or len({t.dtype for t in ts}) != 1:
+        raise TypeError("flash_attention_bwd: q, k, v, o and do must all be "
+                        "float32 or all bfloat16, got "
+                        f"{[str(t.dtype) for t in ts]}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attention_bwd: q, o and do must be (B, Sq, "
+                         "Hq, D) and k, v (B, Sk, Hkv, D), got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    B, Sq, Hq, D = q.shape
+    Bk, Sk, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or D not in HEAD_DIMS or Hkv == 0 or Hq % Hkv:
+        raise ValueError("flash_attention_bwd: needs one batch and head dim "
+                         f"in {HEAD_DIMS} and Hq a multiple of Hkv, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if Sq % BWD_TILE or Sk % BWD_TILE:
+        raise ValueError(f"flash_attention_bwd: Sq={Sq} and Sk={Sk} must be "
+                         f"multiples of {BWD_TILE}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True):
+    """The gradient of ``flash_attention``: q, o and do (B, Sq, Hq, D), k/v
+    (B, Sk, Hkv, D), o the forward's output and do the gradient of the
+    loss with respect to it -> (dq, dk, dv) in the inputs' dtypes.  float32
+    or bfloat16, D in 16/32/64/128, Sq and Sk multiples of 64.  CUDA
+    tensors launch the two kernels (lse and delta, then the gradients;
+    counted once in ``flash_attention.bwd_launches``), CPU tensors take
+    ``attention_bwd_ref``."""
+    _check_bwd(q, k, v, o, do)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.to(q.dtype), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _bwd_library().flash_attention_bwd_launch
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, Hq, Hkv, D,
+                int(q.dtype == torch.bfloat16), int(causal),
+                float(np.float32(D ** -0.5)), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"{_launch_error(rc)}")
+    flash_attention.bwd_launches += 1
+    return dq.to(q.dtype), dk, dv
+
+
+flash_attention.launches = 0  # forward kernel launches since the last reset
+flash_attention.bwd_launches = 0  # backward launches (flash_attention_bwd)

@@ -13,9 +13,11 @@ the plain version,
 inputs are copied to contiguous ones.  Anything else the kernel does not
 take raises: there is no fallback from the card.
 
-The kernel is invisible to autograd, so it refuses inputs that require a
-gradient while grad mode is on (its gradient would otherwise be zero
-without a word).
+The kernel has no backward, so on CUDA tensors it refuses inputs that
+require a gradient while grad mode is on (its gradient would otherwise be
+zero without a word); a ``linear_scan`` backward kernel is ROADMAP queue 2.
+On CPU tensors the plain version is ordinary autograd, so RWKV-6 trains
+there.
 """
 from __future__ import annotations
 
@@ -81,10 +83,12 @@ def _check(r, k, v, log_w, u, state0, chunk: int) -> None:
     c = min(chunk, T)
     if T % c:
         raise ValueError(f"linear_scan: T={T} not divisible by chunk={c}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
-        raise RuntimeError("linear_scan has no backward kernel: call it "
-                           "under torch.no_grad() or on inputs that do not "
-                           "require grad")
+    if r.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in given):
+        raise RuntimeError("linear_scan has no backward kernel on the card "
+                           "(ROADMAP.md, queue 2: a linear_scan backward "
+                           "kernel): call it under torch.no_grad(), on "
+                           "inputs that do not require grad, or on the CPU")
 
 
 def linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -25,7 +25,7 @@ def _require_decoder(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"repro_torch: the encoder-decoder family ({cfg.name}) is not "
-            "ported yet; see ROADMAP.md, queue 1 item 11")
+            "ported yet; see ROADMAP.md, queue 1 item 7")
 
 
 def _placed(batch: dict, device, name: str) -> dict:

@@ -20,7 +20,7 @@ are exactly 0 in float32, and the clamp keeps the two-sided exp
 factorisation inside float32 range.
 
 The Mamba-2 half (``mamba2_specs``, ``_causal_conv``, ``mamba2_block``)
-comes with the hybrid family (ROADMAP, queue 1 item 11).
+comes with the hybrid family (ROADMAP, queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -7,14 +7,17 @@ One spec builder and three entry points:
   * ``decode_step(params, batch, cache, cfg)`` -- one token for the batch
 
 Layer weights are stacked on a leading ``L`` axis, as in the JAX package;
-each layer stack is a Python loop that indexes layer ``l`` and stacks the
-new per-layer caches (KV caches, or RWKV-6 recurrent states) back to
-``(L, ...)``.  The moe and hybrid families are not ported yet (ROADMAP,
-queue 1 item 11).
+each layer stack is a Python loop over the layers (``torch.unbind`` of
+the stacks, whose gradient is one stack of the per-layer gradients) that
+stacks the new per-layer caches (KV caches, or RWKV-6 recurrent states)
+back to ``(L, ...)``.  Under grad, outside decode, each block is
+rematerialised as ``cfg.remat`` says (``_maybe_remat``).  The moe and
+hybrid families are not ported yet (ROADMAP, queue 1 item 7).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from . import ssm
@@ -30,7 +33,7 @@ def _require_ported(cfg: ModelConfig) -> None:
         return
     raise NotImplementedError(
         f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
-        "ported yet; see ROADMAP.md, queue 1 item 11")
+        "ported yet; see ROADMAP.md, queue 1 item 7")
 
 
 # ----------------------------------------------------------------------
@@ -92,20 +95,51 @@ def _rwkv_block(pl, x, state_l, cfg: ModelConfig, decode: bool):
     return x + y, (st2, tm2, cm2)
 
 
-def _layer(tree: dict, l: int) -> dict:
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The per-layer trees of stacked leaves, by one ``unbind`` a leaf."""
+    flat = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
             for k, v in tree.items()}
+    return [{k: v[l] for k, v in flat.items()} for l in range(n)]
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep matrix products, recompute the rest."""
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig, decode: bool):
+    """``fn`` rematerialised in the backward as the JAX package's
+    ``_maybe_remat``: ``full`` keeps only the block's inputs, ``dots`` also
+    the matrix products' outputs, ``none`` everything.  Only under grad and
+    outside decode, where there is a backward to serve."""
+    if decode or cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        def ctx_fn():
+            return ckpt.create_selective_checkpoint_contexts(_save_matmuls)
+    else:
+        ctx_fn = ckpt.noop_context_fn
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=ctx_fn)
+    return run
 
 
 def _stack_dense(params, x, positions, cache, cfg: ModelConfig,
                  decode: bool):
     blocks = params["blocks"]
     n_layers = blocks["attn"]["wq"].shape[0]
+    block = _maybe_remat(_dense_block, cfg, decode)
+    caches = [None] * n_layers if cache is None else _unstack(cache, n_layers)
     new = []
-    for l in range(n_layers):
-        cache_l = None if cache is None else _layer(cache, l)
-        x, new_cache = _dense_block(_layer(blocks, l), x, positions, cache_l,
-                                    cfg, decode)
+    for pl, cache_l in zip(_unstack(blocks, n_layers), caches):
+        x, new_cache = block(pl, x, positions, cache_l, cfg, decode)
         new.append(new_cache)
     if cache is None:
         return x, None
@@ -116,10 +150,12 @@ def _stack_rwkv(params, x, state, cfg: ModelConfig, decode: bool):
     """``state`` is (st (L,B,H,K,K), tm carry (L,B,1,D), cm carry
     (L,B,1,D)); returns x and the new state, stacked the same way."""
     blocks = params["blocks"]
+    n_layers = blocks["wr"].shape[0]
+    block = _maybe_remat(_rwkv_block, cfg, decode)
     new = []
-    for l in range(blocks["wr"].shape[0]):
-        x, state_l = _rwkv_block(_layer(blocks, l), x,
-                                 tuple(s[l] for s in state), cfg, decode)
+    for pl, state_l in zip(_unstack(blocks, n_layers),
+                           zip(*(torch.unbind(s) for s in state))):
+        x, state_l = block(pl, x, state_l, cfg, decode)
         new.append(state_l)
     return x, tuple(torch.stack(s) for s in zip(*new))
 

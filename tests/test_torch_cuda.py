@@ -1,6 +1,7 @@
-"""The port on the card: the maestro_eval, flash_attention and linear_scan
-CUDA kernels against their plain PyTorch versions, their launch counts and
-input checks, and the default device.  Imports no JAX, so it runs where only
+"""The port on the card: the maestro_eval, flash_attention (forward and
+backward) and linear_scan CUDA kernels against their plain PyTorch
+versions, their launch counts and input checks, training through the
+kernels, and the default device.  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -297,9 +298,86 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
         flash_attention(shifted[1:].view(q.shape), k, v)
     with pytest.raises(ValueError, match="tile"):  # a SIMT tile, in bf16
         flash_attention(q, k, v, blk_q=64, blk_k=64)
-    with pytest.raises(RuntimeError, match="backward"):
-        flash_attention(q.requires_grad_(True), k, v)
-    assert flash_attention.launches == before + 1
+    # under grad the forward launches once and builds a graph
+    out = flash_attention(q.clone().requires_grad_(True), k, v)
+    assert out.requires_grad
+    assert flash_attention.launches == before + 2
+
+
+# (B, S, Hq, Hkv, D): ragged head counts (3 over 1, 6 over 2, 5 over 5),
+# every head dim, S = 64 and 192 on the SIMT forward (D = 32: the wgmma
+# forward's tiles are 128), and the two models' shapes at B = 1
+BWD_SHAPES = [(1, 128, 3, 1, 16), (2, 64, 6, 2, 32), (1, 192, 5, 5, 32),
+              (2, 128, 6, 2, 64), (1, 256, 4, 2, 128),
+              (1, 2048, 16, 16, 128), (1, 2048, 32, 8, 128)]
+# relative L2 error of dq, dk, dv against attention_bwd_ref on the same
+# inputs: float32 sums in another order (dq's atomics in a varying one);
+# bf16 rounds the three outputs to 8 mantissa bits
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() /
+                 want.float().norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
+def test_flash_backward_kernel_matches_plain(cuda, no_tf32, shape, dtype,
+                                             causal):
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+    B, S, Hq, Hkv, D = shape
+    q, k, v = _qkv(B, S, S, Hq, Hkv, D, dtype, cuda, seed=2)
+    o = flash_attention(q, k, v, causal=causal)
+    do = _qkv(B, S, S, Hq, Hkv, D, dtype, cuda, seed=3)[0]
+    before = flash_attention.bwd_launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 1
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= BWD_TOL[dtype]
+
+
+def test_flash_attention_trains_through_the_kernels(cuda, no_tf32):
+    """Autograd through ``flash_attention`` on the card (both kernels)
+    against autograd of ``attention_ref`` in float32; bf16 inputs
+    against the float32 gradient of the same bf16 values: the wgmma
+    forward's o (P rounded to bf16) moves the gradient inside bf16's
+    tolerance."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.requires_grad_(True) for t in _qkv(
+            2, 256, 256, 8, 2, 64, dtype, cuda, seed=4))
+        do = torch.randn(q.shape, device=cuda).to(dtype)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do)
+        assert flash_attention.launches == fwd + 1
+        assert flash_attention.bwd_launches == bwd + 1
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        want = torch.autograd.grad(attention_ref(qf, kf, vf), (qf, kf, vf),
+                                   do.float())
+        for g, w in zip(got, want):
+            assert _rel_l2(g, w) <= BWD_TOL[dtype]
+
+
+def test_flash_backward_refuses_double_backward_and_bad_inputs(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = _qkv(1, 128, 128, 2, 1, 32, torch.float32, cuda)
+    qg = q.clone().requires_grad_(True)
+    o = flash_attention(qg, k, v)
+    dq, = torch.autograd.grad((o * o).sum(), qg, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        flash_attention_bwd(q[:, :96], k, v, q[:, :96], q[:, :96])
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention_bwd(q, k, v, q, q.cpu())
 
 
 # ----------------------------------------------------------------------
@@ -382,7 +460,7 @@ def test_linear_scan_counts_launches_and_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="K <= 64"):
         w = torch.zeros(1, 8, 1, 128, device=cuda)
         linear_scan(w, w, w, w)
-    with pytest.raises(RuntimeError, match="backward"):
+    with pytest.raises(RuntimeError, match="queue 2"):
         linear_scan(r.requires_grad_(True), k, v, lw)
     assert linear_scan.launches == before + 1
 
@@ -401,6 +479,73 @@ def test_rwkv_forward_launches_linear_scan_once_per_layer(cuda):
     assert np.isfinite(float(loss))
     assert mid == before + 2 * cfg.n_layers
     assert linear_scan.launches == mid  # decode runs the per-token step
+
+
+# ----------------------------------------------------------------------
+# Training on the card (repro_torch.training, checkpoint)
+# ----------------------------------------------------------------------
+
+def test_dense_train_step_on_card_matches_cpu(cuda, no_tf32):
+    """Reduced llama3-8b (GQA 4 over 2) at S = 128, where the attention
+    takes the kernels: full remat runs each layer's forward twice and the
+    backward once; the float32 step equals the CPU step (the plain
+    attention under autograd) within float32 sums."""
+    from repro_torch.data import batch_for_step
+    from repro_torch.optim import adamw
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+    cfg = REGISTRY["llama3-8b"].reduced().replace(n_kv_heads=2,
+                                                  dtype=torch.float32)
+    batch = batch_for_step(0, global_batch=2, seq=128, vocab=cfg.vocab)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = _f32(init_params(registry.specs(cfg), 0, "cpu"), dev)
+        tc = TrainConfig(opt=adamw.AdamWConfig(warmup_steps=1))
+        step = make_train_step(cfg, tc, device=dev)
+        fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+        params, _, m = step(params, adamw.init_state(params), batch)
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         [p.detach().cpu() for p in leaves(params)])
+        if dev.type == "cuda":
+            assert flash_attention.launches - fwd == 2 * cfg.n_layers
+            assert flash_attention.bwd_launches - bwd == cfg.n_layers
+    (lc, gc, pc), (lp, gp, pp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    assert abs(gc - gp) <= 1e-4 * abs(gp)
+    for a, b in zip(pc, pp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _f32(tree, dev):
+    return {k: _f32(v, dev) if isinstance(v, dict) else
+            v.to(dev, torch.float32) for k, v in tree.items()}
+
+
+def test_rwkv_training_on_card_raises_queue_2(cuda):
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    cfg = REGISTRY["rwkv6-1.6b"].reduced()
+    tc = TrainConfig()
+    params, opt = init_train_state(cfg, tc, 0, cuda)
+    toks = np.zeros((2, 32), np.int32)
+    with pytest.raises(RuntimeError, match="queue 2"):
+        make_train_step(cfg, tc, device=cuda)(
+            params, opt, {"tokens": toks, "labels": toks})
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.training import TrainConfig, init_train_state
+    from repro_torch.tree import leaves
+    cfg = REGISTRY["olmo-1b"].reduced()
+    state = init_train_state(cfg, TrainConfig(), 0, cuda)
+    ck = Checkpointer(str(tmp_path), keep=1)
+    ck.save(1, state, async_save=True)
+    restored, manifest = ck.restore(state, device=cuda)
+    assert manifest["step"] == 1
+    for a, b in zip(leaves(state), leaves(restored)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.detach(), b)
 
 
 # ----------------------------------------------------------------------

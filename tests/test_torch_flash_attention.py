@@ -111,10 +111,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_wrapper_refuses_inputs_that_need_a_gradient():
+    """The wrapper refused such inputs until its backward landed; under
+    grad it now differentiates them (on CPU tensors through
+    ``attention_bwd_ref``, held in ``tests/test_torch_flash_backward.py``),
+    and without grad it builds no graph."""
     _, (q, k, v) = _both(_inputs(1, 128, 128, 2, 2, 16), "float32")
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="backward"):
-        flash_attention(q, k, v)
+    out = flash_attention(q, k, v)
+    assert out.requires_grad
+    dq, = torch.autograd.grad(out.sum(), q)
+    want, = torch.autograd.grad(attention_ref(q, k, v).sum(), q)
+    torch.testing.assert_close(dq, want, rtol=1e-6, atol=1e-6)
     with torch.no_grad():
         out = flash_attention(q, k, v)
     assert not out.requires_grad

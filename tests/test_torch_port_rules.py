@@ -79,8 +79,37 @@ def test_every_module_is_listed():
                  "repro_torch.serve.admission",
                  "repro_torch.serve.drain", "repro_torch.serve.loadgen",
                  "repro_torch.serve.server", "repro_torch.launch.serve",
-                 "repro_torch.launch.loadgen"):
+                 "repro_torch.launch.loadgen", *TRAINING_MODULES,
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.tree"):
         assert name in MODULES
+
+
+TRAINING_MODULES = ("repro_torch.optim", "repro_torch.optim.adamw",
+                    "repro_torch.training", "repro_torch.training.train_step",
+                    "repro_torch.training.grad_compression",
+                    "repro_torch.data", "repro_torch.data.pipeline",
+                    "repro_torch.checkpoint",
+                    "repro_torch.checkpoint.checkpointer",
+                    "repro_torch.ft", "repro_torch.ft.coordinator",
+                    "repro_torch.launch.train")
+
+
+def test_training_modules_load_no_jax_no_repro_no_ml_dtypes():
+    """The training slice alone: its checkpoints keep the reference's
+    bfloat16 format without ``ml_dtypes``."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {TRAINING_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
 
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
@@ -394,3 +423,45 @@ def test_server_raises_without_device(no_cuda, tmp_path):
             await srv.stop()
     st, body = asyncio.run(run())
     assert st == 200 and body["kind"] == "layer"
+
+
+def _train_case():
+    from repro_torch.training import TrainConfig
+    cfg = REGISTRY["olmo-1b"].reduced()
+    toks = np.zeros((2, 8), np.int32)
+    return cfg, TrainConfig(), {"tokens": toks, "labels": toks}
+
+
+def test_training_raises_without_device(no_cuda, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.training import init_train_state, make_train_step
+    cfg, tc, _ = _train_case()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, tc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, tc, 0)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ck.restore({"w": None})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "t")])
+
+
+def test_training_runs_on_cpu_on_request(no_cuda, tmp_path, capsys):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.training import init_train_state, make_train_step
+    cfg, tc, batch = _train_case()
+    params, opt = init_train_state(cfg, tc, 0, "cpu")
+    params, opt, m = make_train_step(cfg, tc, device="cpu")(params, opt,
+                                                            batch)
+    assert np.isfinite(float(m["loss"])) and int(opt["count"]) == 1
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, (params, opt))
+    (p2, _), _ = ck.restore((params, opt), device="cpu")
+    assert p2["embed"]["tok"].device.type == "cpu"
+    train.main(["--steps", "1", "--batch", "2", "--seq", "16", "--device",
+                "cpu", "--ckpt-dir", str(tmp_path / "t")])
+    assert "done: 1 steps" in capsys.readouterr().out
