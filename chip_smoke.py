@@ -12,8 +12,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    libraries) and ``linear_scan`` kernels from their sources under
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, all at once)
    and print the build seconds and ptxas registers and spills;
-   ``cuobjdump -sass`` of the flash forward library must show HGMMA
-   (wgmma on the tensor cores) and UTMALDG (TMA loads);
+   ``cuobjdump -sass`` of the flash forward library and of the flash
+   backward library must each show HGMMA (wgmma on the tensor cores) and
+   UTMALDG (TMA loads);
 2. the kernel against its plain PyTorch version on the card, for all 32
    VGG16 × {C-P, X-P} tables: pes 1..16384 × bw {1, 2, 3.5, 8, 64, 128} plus
    4096 random designs each, rtol 1e-6 on all five columns; runtime and macs
@@ -121,15 +122,18 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 
 13. training (``repro_torch.training``, ``ft``, ``checkpoint``): the
    ``flash_attention`` backward kernel against ``attention_bwd_ref`` (o
-   from the forward kernel; rel L2 of dq, dk, dv within 1e-5 in float32
-   and 2e-2 in bf16, bf16 also against the float32 formulas with the
-   float32 o) at ragged small shapes and olmo-1b's and llama3-8b's; olmo-1b
+   and lse from the forward kernel, its lse held against the plain one;
+   rel L2 of dq, dk, dv within 1e-5 in float32 and 2e-2 in bf16, bf16 also
+   against the float32 formulas with the float32 o) at ragged small shapes
+   and olmo-1b's and llama3-8b's (bf16 at D = 64, 128 on the wgmma
+   backward, the rest on the SIMT one); olmo-1b
    at full width and depth (16 layers, d_model 2048, vocab 50304, bf16,
    seed 0) trains 3 steps at B=2, S=2048 through ``make_train_step`` and
    ``FaultTolerantLoop`` (checkpoints off at this size): finite loss and
    grad_norm, 32 forward and 16 backward flash launches a step (full
    remat runs each layer's forward again in the backward), tokens/s per
-   step, peak memory, then one step under ``torch.profiler``; one step's
+   step, peak memory, then one step under ``torch.profiler`` (tokens/s,
+   busy share and the backward's share printed beside PR 25's); one step's
    loss and gradients on the kernel route against ``attention_ref`` under
    autograd, in bf16 (loss 1e-3, grad_norm 1e-2 relative) and on a float32
    copy (loss 1e-5, every gradient leaf 1e-4 rel L2, each printed); a
@@ -137,7 +141,8 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    reduced rwkv6-1.6b training on the card raises (no ``linear_scan``
    backward kernel, ROADMAP queue 2); then the backward timed at
    llama3-8b's and olmo-1b's shapes beside its plain version, SDPA's
-   backward (``library_ms``) and the bound.
+   backward (``library_ms``) and the bound, with its delta pass timed
+   apart and the forward timed with and without its lse store.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
@@ -274,9 +279,9 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 def phase_build() -> None:
     """All four kernel sources (maestro_eval, the flash forward, linear_scan,
-    the flash backward), one nvcc each, started together; then the flash
-    forward library's SASS must hold the tensor-core product and a TMA
-    load."""
+    the flash backward), one nvcc each, started together; then the SASS of
+    the flash forward library and of the flash backward library must each
+    hold the tensor-core product and a TMA load."""
     from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     from repro_torch.kernels import _build
@@ -296,12 +301,39 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas {src.stem}: {line.strip()}")
     log(f"[build] wall {time.perf_counter() - t0:.2f} s")
+    spills = ptxas_spills(results[3][2], "flash_bwd_wgmma_kernel")
+    log(f"[build] ptxas spill bytes (stores, loads) of the wgmma backward "
+        f"by instance: {spills or 'not rebuilt in this run'}")
+    check(all(v == (0, 0) for v in spills.values()), "the wgmma flash "
+          f"backward spills registers: {spills}")
     sass_check(results[1][0])
+    sass_check(results[3][0])
+
+
+def ptxas_spills(report: str, kernel: str) -> dict:
+    """{mangled instance: (spill store bytes, spill load bytes)} of the
+    entry functions whose name holds ``kernel``, from ``-Xptxas -v``'s
+    report (empty when the library was not rebuilt)."""
+    import re
+    out, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None and kernel in current:
+            out[current] = (int(m.group(1)), int(m.group(2)))
+        if m:
+            current = None
+    return out
 
 
 def sass_check(lib: Path) -> None:
-    """``cuobjdump -sass`` of the flash library: the wgmma kernel must
-    compile to tensor-core products (HGMMA) fed by TMA loads (UTMALDG)."""
+    """``cuobjdump -sass`` of a flash library (forward or backward): its
+    wgmma kernel must compile to tensor-core products (HGMMA) fed by TMA
+    loads (UTMALDG)."""
     import os
     import shutil
     tool = shutil.which("cuobjdump") or str(
@@ -312,9 +344,9 @@ def sass_check(lib: Path) -> None:
     counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
     log(f"[build] SASS of {lib.name}: " +
         ", ".join(f"{op} {n}" for op, n in counts.items()))
-    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, "the flash "
-          "library's SASS holds no HGMMA or no UTMALDG: the bf16 kernel "
-          "does not run on the tensor cores through TMA")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, f"{lib.name}'s "
+          "SASS holds no HGMMA or no UTMALDG: the bf16 kernel does not run "
+          "on the tensor cores through TMA")
 
 
 def phase_kernel_vs_plain(tables, device, n_random: int = 4096,
@@ -429,12 +461,14 @@ def phase_main_path(device, cfg=None, scales=(1, 2, 4, 8)) -> None:
                     f"{p['power_mw']:.4f}")
 
 
-def profile_call(fn, label: str, device, kernel: str | None = None) -> None:
+def profile_call(fn, label: str, device, kernel: str | None = None) -> dict:
     """Where one call of ``fn`` spends its time: the card's busy time
     (kernels and copies, by ``torch.profiler``) against the call's wall
     time, the device kernels and host operators that dominate, and the
     device time and share of busy time of the kernels whose name holds
-    ``kernel``.  One warm-up call, one unprofiled and one profiled call."""
+    ``kernel``.  One warm-up call, one unprofiled and one profiled call.
+    Returns the unprofiled and the profiled call's wall, the busy seconds
+    and the device time by name ({name: [count, us]})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(device)
@@ -472,6 +506,8 @@ def profile_call(fn, label: str, device, kernel: str | None = None) -> None:
     for e in host[:6]:
         log(f"[profile]   host self {e.self_cpu_time_total / 1e3:.3f} ms in "
             f"{e.count} x {e.key[:70]}")
+    return {"plain_wall": plain_wall, "wall": wall, "busy": busy_s,
+            "by_name": by_name}
 
 
 def profile_run_dse(device, cfg=None) -> None:
@@ -1756,46 +1792,58 @@ TRAIN_STEPS = 3
 
 
 def bwd_inputs(shape, dtype, device, seed: int = 0):
-    """q, k, v, the forward kernel's o, and do ~ N(0, 1)."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    """q, k, v, the forward kernel's o and lse, and do ~ N(0, 1)."""
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
     B, S, Hq, Hkv, D, causal = shape
     q, k, v = qkv((B, S, S, Hq, Hkv, D, causal), dtype, device, seed)
     g = torch.Generator(device=device).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g, device=device).to(dtype)
-    with torch.no_grad():
-        o = flash_attention(q, k, v, causal=causal)
-    return q, k, v, o, do
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    return q, k, v, o, do, lse
+
+
+# the forward kernel's lse against attention_ref's: float32 sums in another
+# order, the wgmma kernel in base 2 (exp2, log2, then times ln 2)
+LSE_TOL = 1e-5
 
 
 def phase_flash_bwd_vs_plain(device) -> float:
     """The backward kernel against ``attention_bwd_ref`` on the same
-    inputs (o from the forward kernel), rel L2 of dq, dk and dv, at
-    ragged small shapes and olmo-1b's and llama3-8b's, float32 and bf16;
-    for bf16 also against the float32 gradient of the bf16 values with
-    the float32 o (the wgmma forward's o has P rounded to bf16: held to
-    the same 2e-2).  Returns the largest absolute error against the plain
-    version."""
+    inputs (o and lse from the forward kernel; the plain version computes
+    its own lse, and the kernel's is held against it first), rel L2 of
+    dq, dk and dv, at ragged small shapes and olmo-1b's and llama3-8b's,
+    float32 and bf16; for bf16 also against the float32 gradient of the
+    bf16 values with the float32 o (the wgmma forward's o has P rounded
+    to bf16: held to the same 2e-2).  Returns the largest absolute error
+    against the plain version."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_ref,
                                                      flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        bwd_tile)
     worst = 0.0
     cases = [(s, dt) for s in BWD_SHAPES + [OLMO_BWD]
              for dt in (torch.float32, torch.bfloat16)] + [
         (LLAMA_BWD, torch.bfloat16)]
     for shape, dt in cases:
         causal = shape[-1]
-        q, k, v, o, do = bwd_inputs(shape, dt, device)
-        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        q, k, v, o, do, lse = bwd_inputs(shape, dt, device)
+        _, lse_ref = attention_ref(q, k, v, causal=causal, return_lse=True)
+        lse_err = float(((lse - lse_ref).abs() /
+                         (LSE_TOL + LSE_TOL * lse_ref.abs())).max())
+        got = flash_attention_bwd(q, k, v, o, do, lse=lse, causal=causal)
         sync(device)
         want = attention_bwd_ref(q, k, v, o, do, causal=causal)
         errs = [rel_l2(g, w.double()) for g, w in zip(got, want)]
         ok = all(torch.isfinite(g).all() for g in got)
         worst = max([worst] + [float((g.float() - w.float()).abs().max())
                                for g, w in zip(got, want)])
-        line = (f"[flash-bwd-vs-plain] {shape} {str(dt)[6:]}: rel L2 dq "
-                f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (limit "
-                f"{BWD_TOL[dt]})")
-        del want
+        route = "wgmma" if bwd_tile(dt, shape[4])[1] == 128 else "SIMT"
+        line = (f"[flash-bwd-vs-plain] {shape} {str(dt)[6:]} ({route}): "
+                f"lse max abs err {float((lse - lse_ref).abs().max()):.3g} "
+                f"(atol=rtol={LSE_TOL}); rel L2 dq {errs[0]:.3g}, dk "
+                f"{errs[1]:.3g}, dv {errs[2]:.3g} (limit {BWD_TOL[dt]})")
+        del want, lse_ref
         if dt == torch.bfloat16:
             qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
             o32 = attention_ref(qf, kf, vf, causal=causal)
@@ -1806,26 +1854,34 @@ def phase_flash_bwd_vs_plain(device) -> float:
             errs += e32
             del qf, kf, vf, dof, o32, exact
         log(line)
+        check(lse_err <= 1.0, f"flash forward {shape} {dt}: lse beyond "
+              f"atol=rtol={LSE_TOL} of attention_ref's")
         check(ok and max(errs) <= BWD_TOL[dt], f"flash backward {shape} "
               f"{dt}: rel L2 {errs} beyond {BWD_TOL[dt]}")
-        del q, k, v, o, do, got
+        del q, k, v, o, do, lse, got
         torch.cuda.empty_cache()
     return worst
 
 
 def flash_bwd_times(shape, device, name: str) -> dict:
-    """The backward kernel, its plain version and SDPA's backward (through
-    autograd, on the same inputs) at ``shape`` in bf16, and the bound:
-    2.5 x the causal forward's operations over the bf16 tensor-core peak,
-    or the bytes of q, k, v, o, do read and dq, dk, dv written once over
-    the memory rate, whichever is larger."""
+    """The backward kernel (and each of its kernels' device time, the
+    delta pass apart), its plain version
+    and SDPA's backward (through autograd, on the same inputs) at
+    ``shape`` in bf16, and the bound: 2.5 x the causal forward's
+    operations over the bf16 tensor-core peak, or the bytes of q, k, v,
+    o, do and lse read and dq, dk, dv written once over the memory rate,
+    whichever is larger; then the forward kernel with and without its lse
+    store, in turns."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
-                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_ref, flash_attention, flash_attention_bwd,
+        flash_attention_with_lse)
     B, S, Hq, Hkv, D, causal = shape
-    q, k, v, o, do = bwd_inputs(shape, torch.bfloat16, device, seed=5)
-    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do,
+    q, k, v, o, do, lse = bwd_inputs(shape, torch.bfloat16, device, seed=5)
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
                                              causal=causal), 10)
+    parts = device_ms_by_kernel(lambda: flash_attention_bwd(
+        q, k, v, o, do, lse=lse, causal=causal), 3)
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do,
                                                  causal=causal), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1835,21 +1891,58 @@ def flash_bwd_times(shape, device, name: str) -> dict:
     dot = do.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 10)
+    del out, qt, kt, vt, dot
+    fwd = [time_ms(lambda: flash_attention(q, k, v, causal=causal), 20),
+           time_ms(lambda: flash_attention_with_lse(q, k, v, causal=causal),
+                   20)]
+    fwd += [time_ms(lambda: flash_attention_with_lse(q, k, v, causal=causal),
+                    20),
+            time_ms(lambda: flash_attention(q, k, v, causal=causal), 20)]
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 2.5 * 4 * B * Hq * D * pairs
-    nbytes = 2 * (3 * 2 * B * S * Hq * D + 2 * 2 * B * S * Hkv * D)
+    nbytes = 2 * (3 * 2 * B * S * Hq * D + 2 * 2 * B * S * Hkv * D) + \
+        4 * B * Hq * S
     mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
     ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / mem_bw * 1e3
     bound = max(ops_ms, bytes_ms)
     log(f"[kernel] flash_attention_bwd {shape} bf16: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.6g} TFLOP/s counted as 2.5 x the forward), "
-        f"plain {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+        f"plain "
+        f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
         f"{bound:.4f} ms (operations {ops_ms:.4f}: {flops / 1e9:.6g} GFLOP "
         f"at 989 TFLOP/s; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} MB): "
-        f"{bound / ms:.4f} of the bound")
+        f"{bound / ms:.4f} of the bound; kernel / SDPA backward "
+        f"{ms / library_ms:.4f}")
+    log(f"[kernel] flash_attention_bwd {shape} bf16, device time a call by "
+        f"kernel (torch.profiler, 3 calls): " + "; ".join(
+            f"{t:.4f} ms {n[:60]}" for n, t in parts.items()))
+    log(f"[kernel] flash_attention {shape} bf16 forward in turns: without "
+        f"lse {fwd[0]:.4f}, {fwd[3]:.4f} ms; writing lse {fwd[1]:.4f}, "
+        f"{fwd[2]:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def device_ms_by_kernel(fn, calls: int) -> dict:
+    """Device milliseconds a call of ``fn`` by kernel name (the wrapper's
+    memsets and casts included), from ``torch.profiler`` over ``calls``
+    calls after one warm-up: a kernel of a few microseconds timed alone by
+    CUDA events around Python calls reads the host's launch rate."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def flash_bwd_record(device, launches: int, max_abs_err: float,
@@ -1863,9 +1956,12 @@ def flash_bwd_record(device, launches: int, max_abs_err: float,
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-        "design": "no TPU counterpart (XLA's gradient of the forward): "
-                  "float32 SIMT, lse/delta pass, then per 64-key tile dK, "
-                  "dV in registers and dQ by atomicAdd; times at olmo-1b's "
+        "design": "no TPU counterpart (XLA's gradient of the forward): a "
+                  "delta pass, then bf16 at D = 64, 128 on wgmma fed by TMA "
+                  "(128 keys a block in two warpgroups, K/V resident, Q/dO "
+                  "in a 2-stage ring, lse from the forward, P and dS in "
+                  "bf16, dK/dV in registers, dQ by float2 atomics); "
+                  "float32 SIMT otherwise; times at olmo-1b's "
                   f"{OLMO_BWD}",
         "launches": launches, "max_abs_err": max_abs_err, **t,
     }
@@ -1965,8 +2061,23 @@ def phase_train(device, card: str = "", cfg=None):
         nonlocal params, opt
         params, opt, m = step(params, opt, batch)
         float(m["loss"])
-    profile_call(one_step, f"{cfg.name} train step B={B} S={S}", device,
-                 "flash_bwd")
+    prof = profile_call(one_step, f"{cfg.name} train step B={B} S={S}",
+                        device, "flash_bwd")
+    bwd = {n: v for n, v in prof["by_name"].items() if "flash_bwd" in n}
+    bwd_us = sum(us for _, us in bwd.values())
+    log("[train] the backward's kernels in the profiled step: " + "; ".join(
+        f"{us / 1e3:.3f} ms in {c} x {n[:60]}" for n, (c, us) in
+        sorted(bwd.items(), key=lambda kv: -kv[1][1])))
+    warm = [B * S / s[0] for s in steps[1:]] or [B * S / steps[0][0]]
+    log(f"[train] {cfg.name} step: {min(warm):.6g}-{max(warm):.6g} tokens/s "
+        f"warm, busy share {prof['busy'] / prof['wall']:.4f} of the "
+        f"profiled step ({prof['busy'] / prof['plain_wall']:.4f} of the "
+        f"unprofiled step's wall), the backward "
+        f"{bwd_us / 1e6 / max(prof['busy'], 1e-12):.4f} of "
+        f"busy; PR 25 (H100 80GB HBM3, 700.00 W): 12685.9-13196.2 tokens/s, "
+        f"busy share 0.7022-0.8865, the backward 0.2823-0.2827 of busy")
+    check(not any("flash_bwd_prep" in n for n in bwd), "the lse pass "
+          "(flash_bwd_prep) still runs in the train step")
     del opt
     torch.cuda.empty_cache()
     return cfg, params, launches[1], launches[0]

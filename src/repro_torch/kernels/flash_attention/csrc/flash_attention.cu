@@ -17,6 +17,10 @@
 //     l' = alpha l + rowsum(p), acc' = alpha acc + p.v;
 //   * the result is acc / max(l, 1e-30), stored in q's dtype
 //     (__float2bfloat16 rounds to nearest even, as astype does).
+// Where the caller passes an lse buffer (float32, (B, Hq, Sq); the
+// backward's input, flash_attention_bwd.cu), both kernels also write each
+// row's natural-log log-sum-exp of the scaled, masked scores, m + log(l),
+// once per row; with a null pointer nothing more is written.
 // A K/V tile lying wholly above the diagonal is skipped: every score in it
 // is masked, so it adds exp(-1e30 - m) = 0 to l and acc once m is finite,
 // and m is finite after the first tile (k_pos = 0 <= q_pos for every row).
@@ -65,7 +69,9 @@
 //      and B of one type, and V in fp16 could overflow.
 //    * Epilogue: o / max(l, 1e-30) is rounded to bf16, written into the
 //      warpgroup's own (now free) q rows in the same swizzled layout,
-//      fenced to the async proxy and stored by TMA.
+//      fenced to the async proxy and stored by TMA.  m and l are in base
+//      2, so lse = (m + log2(l)) ln 2, after the quad reduction of l; one
+//      lane of each quad stores it.
 //    What bounds this design below the bound: one thread issues the loads
 //    and the warpgroups themselves wait on them (no producer warp, no
 //    setmaxnreg), and in a warpgroup the softmax waits for S and the next
@@ -139,8 +145,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int Hq, int Hkv, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                 int causal, float scale) {
   constexpr int RQ = BQ / TY;  // query rows per thread
   constexpr int CK = BK / TX;  // score columns per thread
   constexpr int CD = D / TX;   // output columns per thread
@@ -262,11 +269,17 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = 0; c < CD; ++c)
       orow[tx + TX * c] = from_f32<T>(acc[i][c] / denom);
   }
+  if (lse != nullptr && tx == 0) {
+    float* lrow = lse + ((int64_t)b * Hq + h) * Sq + q0;
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) lrow[ty + TY * i] = m[i] + logf(l[i]);
+  }
 }
 
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;  // null: not written
   int B, Sq, Sk, Hq, Hkv, causal;
   float scale;
   cudaStream_t stream;
@@ -281,8 +294,8 @@ int launch(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.Sq / BQ, a.Hq, a.B);
   kern<<<grid, THREADS, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.Sq, a.Sk, a.Hq,
-      a.Hkv, a.causal, a.scale);
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse, a.Sq, a.Sk,
+      a.Hq, a.Hkv, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -537,8 +550,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap to, int Sk,
-                       int Hq, int Hkv, int causal, float scale_log2) {
+                       const __grid_constant__ CUtensorMap to,
+                       float* __restrict__ lse, int Sk, int Hq, int Hkv,
+                       int causal, float scale_log2) {
   using C = WgTile<D, BK>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bars[3];  // q, then one per K/V stage
@@ -682,8 +696,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   // epilogue: o / max(l, 1e-30) in bf16 into this wg's q rows (their last
   // reader, the final S wgmma, has completed), swizzled as TMA reads them
-  const float den0 = fmaxf(quad_sum(l0), 1e-30f);
-  const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+  const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+  const float den0 = fmaxf(sum0, 1e-30f), den1 = fmaxf(sum1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lrow = lse + ((int64_t)b * Hq + h) * (gridDim.z * WG_BQ);
+    lrow[qpos0] = (m0 + log2f(sum0)) * 0.6931471805599453f;  // ln 2
+    lrow[qpos1] = (m1 + log2f(sum1)) * 0.6931471805599453f;
+  }
 #pragma unroll
   for (int jj = 0; jj < D / 8; ++jj) {
     uint8_t* box = q_wg + (jj / 8) * 64 * BOX_ROW + 4 * (lane % 4);
@@ -762,7 +781,7 @@ int launch_wgmma(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.Hq, a.B, a.Sq / WG_BQ);
   kern<<<grid, WG_THREADS, C::SMEM, a.stream>>>(
-      tq, tk, tv, to, a.Sk, a.Hq, a.Hkv, a.causal,
+      tq, tk, tv, to, a.lse, a.Sk, a.Hq, a.Hkv, a.causal,
       a.scale * 1.4426950408889634f);  // exp(x) = exp2(x log2(e))
   return (int)cudaGetLastError();
 }
@@ -800,7 +819,8 @@ int simt_by_tile(int blk_q, int blk_k, int D, const Args& a) {
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success), -1 for a
+// Launch on `stream`; lse is null or a float32 (B, Hq, Sq) buffer for the
+// rows' log-sum-exp.  Returns cudaGetLastError() (0 on success), -1 for a
 // head dim, tile or dtype this file was not compiled for, -2 if libcuda.so.1
 // has no cuTensorMapEncodeTiled, 2000 + its CUresult if a tensor map was
 // refused.  bf16 at D = 64 or 128 takes the wgmma kernel (blk_q = 128,
@@ -808,12 +828,13 @@ int simt_by_tile(int blk_q, int blk_k, int D, const Args& a) {
 // blk_k = 64).  The caller has checked shapes, contiguity, 16-byte
 // alignment, Sq % blk_q == 0, Sk % blk_k == 0 and Hq % Hkv == 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, float* lse,
+                                      int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
                                       int is_bf16, int causal, int blk_q,
                                       int blk_k, float scale, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  const Args a{q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale,
+  const Args a{q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale,
                (cudaStream_t)stream};
   if (!is_bf16) return simt_by_tile<float>(blk_q, blk_k, D, a);
   if (D == 64 || D == 128) return wgmma_by_tile(blk_q, blk_k, D, a);

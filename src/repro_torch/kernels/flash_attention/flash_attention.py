@@ -15,12 +15,16 @@ kernel (``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
 device: there is no fallback from the card.
 
 Under grad, ``flash_attention`` goes through ``_FlashAttention``, an
-autograd function whose backward is ``flash_attention_bwd``: on CUDA
-tensors the hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a
-library of their own, built the same way), counted in
-``flash_attention.bwd_launches``; on CPU tensors ``attention_bwd_ref``.
-The JAX package has no backward kernel: XLA differentiates through its
-forward.  The backward is not differentiable again.
+autograd function: its forward also has the kernel write each row's
+log-sum-exp (``lse``, float32 (B, Hq, Sq)) and saves it beside q, k, v and
+o; its backward is ``flash_attention_bwd``: on CUDA tensors the
+hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a library of
+their own, built the same way; (dtype, D) picks the kernel as for the
+forward: bfloat16 at D = 64 or 128 on the tensor cores, the rest the
+float32 SIMT one), counted in ``flash_attention.bwd_launches``; on CPU
+tensors ``attention_bwd_ref``.  The JAX package has no backward kernel:
+XLA differentiates through its forward.  The backward is not
+differentiable again.
 """
 from __future__ import annotations
 
@@ -48,7 +52,10 @@ WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these runs the wgmma kernel
 SIMT_TILES = ((64, 64), (128, 64))
 WGMMA_TILES = ((128, 128), (128, 64))
 DTYPES = (torch.float32, torch.bfloat16)
-BWD_TILE = 64  # the backward's q and k tile: Sq and Sk must be multiples
+# the backward's (q, k) tiles: Sq and Sk must be multiples of them; bf16 at
+# WGMMA_HEAD_DIMS runs the wgmma kernel (64 q rows, 128 keys a block)
+BWD_SIMT_TILE = (64, 64)
+BWD_WGMMA_TILE = (64, 128)
 
 
 def tiles(dtype: torch.dtype, D: int) -> tuple[tuple[int, int], ...]:
@@ -59,11 +66,18 @@ def tiles(dtype: torch.dtype, D: int) -> tuple[tuple[int, int], ...]:
     return SIMT_TILES
 
 
+def bwd_tile(dtype: torch.dtype, D: int) -> tuple[int, int]:
+    """The (q, k) tile of the backward kernel that (dtype, D) runs."""
+    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        return BWD_WGMMA_TILE
+    return BWD_SIMT_TILE
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SRC, NVCC_FLAGS)
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -151,62 +165,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     blk_q, blk_k = _check(q, k, v, blk_q, blk_k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, blk_q, blk_k)
-    return _forward(q, k, v, causal, blk_q, blk_k)
+    return _forward(q, k, v, causal, blk_q, blk_k)[0]
 
 
-def _forward(q, k, v, causal: bool, blk_q: int, blk_k: int) -> torch.Tensor:
-    """The checked forward: the kernel on CUDA tensors, ``attention_ref``
-    on CPU tensors."""
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             blk_q: int | None = None,
+                             blk_k: int | None = None):
+    """``flash_attention`` without autograd that also returns each row's
+    log-sum-exp -> (o, lse), lse float32 (B, Hq, Sq): the forward that
+    ``flash_attention_bwd`` takes its lse from."""
+    blk_q, blk_k = _check(q, k, v, blk_q, blk_k)
+    return _forward(q, k, v, causal, blk_q, blk_k, with_lse=True)
+
+
+def _forward(q, k, v, causal: bool, blk_q: int, blk_k: int,
+             with_lse: bool = False):
+    """The checked forward -> (o, lse), lse None unless ``with_lse``: the
+    kernel on CUDA tensors, ``attention_ref`` on CPU tensors."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal)
+        if with_lse:
+            return attention_ref(q, k, v, causal=causal, return_lse=True)
+        return attention_ref(q, k, v, causal=causal), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
+    if lse is not None and Sk == 0:  # no keys: the kernel writes o alone
+        lse.fill_(float("-inf"))
     fn = _library().flash_attention_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Sq, Sk, Hq, Hkv, D, int(q.dtype == torch.bfloat16),
-                int(causal), blk_q, blk_k, float(np.float32(D ** -0.5)),
-                stream)
+                None if lse is None else lse.data_ptr(), B, Sq, Sk, Hq, Hkv,
+                D, int(q.dtype == torch.bfloat16), int(causal), blk_q, blk_k,
+                float(np.float32(D ** -0.5)), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{_launch_error(rc)}")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``flash_attention`` under autograd: the forward kernel, then
-    ``flash_attention_bwd`` on the saved q, k, v and o."""
+    """``flash_attention`` under autograd: the forward kernel, writing
+    lse beside o, then ``flash_attention_bwd`` on the saved q, k, v, o and
+    lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, blk_q, blk_k):
-        o = _forward(q, k, v, causal, blk_q, blk_k)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, blk_q, blk_k, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=ctx.causal)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                         causal=ctx.causal)
         return dq, dk, dv, None, None, None
 
 
-def _check_bwd(q, k, v, o, do) -> None:
-    """Raises on what the backward kernel does not take."""
+def _check_bwd(q, k, v, o, do, lse) -> None:
+    """Raises on what the backward kernel for (dtype, D) does not take."""
     ts = (q, k, v, o, do)
-    if not all(isinstance(t, torch.Tensor) for t in ts):
+    if not all(isinstance(t, torch.Tensor) for t in ts) or not (
+            lse is None or isinstance(lse, torch.Tensor)):
         raise TypeError("flash_attention_bwd takes torch tensors")
-    if len({t.device for t in ts}) != 1:
-        raise ValueError("flash_attention_bwd: q, k, v, o and do must be on "
-                         "one device")
+    if len({t.device for t in ts + ((lse,) if lse is not None else ())}) != 1:
+        raise ValueError("flash_attention_bwd: q, k, v, o, do and lse must "
+                         "be on one device")
     if q.dtype not in DTYPES or len({t.dtype for t in ts}) != 1:
         raise TypeError("flash_attention_bwd: q, k, v, o and do must all be "
                         "float32 or all bfloat16, got "
@@ -222,34 +257,49 @@ def _check_bwd(q, k, v, o, do) -> None:
         raise ValueError("flash_attention_bwd: needs one batch and head dim "
                          f"in {HEAD_DIMS} and Hq a multiple of Hkv, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
-    if Sq % BWD_TILE or Sk % BWD_TILE:
+    bq, bk = bwd_tile(q.dtype, D)
+    if Sq % bq or Sk % bk:
         raise ValueError(f"flash_attention_bwd: Sq={Sq} and Sk={Sk} must be "
-                         f"multiples of {BWD_TILE}")
+                         f"multiples of {bq} and {bk} for {q.dtype} at head "
+                         f"dim {D}")
+    if lse is not None and (lse.dtype != torch.float32 or
+                            tuple(lse.shape) != (B, Hq, Sq)):
+        raise ValueError("flash_attention_bwd: lse must be float32 (B, Hq, "
+                         f"Sq) = {(B, Hq, Sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
+                        lse: torch.Tensor | None = None,
                         causal: bool = True):
     """The gradient of ``flash_attention``: q, o and do (B, Sq, Hq, D), k/v
-    (B, Sk, Hkv, D), o the forward's output and do the gradient of the
-    loss with respect to it -> (dq, dk, dv) in the inputs' dtypes.  float32
-    or bfloat16, D in 16/32/64/128, Sq and Sk multiples of 64.  CUDA
-    tensors launch the two kernels (lse and delta, then the gradients;
-    counted once in ``flash_attention.bwd_launches``), CPU tensors take
-    ``attention_bwd_ref``."""
-    _check_bwd(q, k, v, o, do)
+    (B, Sk, Hkv, D), o the forward's output, do the gradient of the loss
+    with respect to it and lse the forward's row log-sum-exp (float32,
+    (B, Hq, Sq)) -> (dq, dk, dv) in the inputs' dtypes.  float32 or
+    bfloat16, D in 16/32/64/128, Sq and Sk multiples of ``bwd_tile(dtype,
+    D)``.  CUDA tensors launch the kernels (delta, then the gradients;
+    counted once in ``flash_attention.bwd_launches``) and need lse; CPU
+    tensors take ``attention_bwd_ref``, which computes lse where it is
+    not given."""
+    _check_bwd(q, k, v, o, do, lse)
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, do, causal=causal)
+        return attention_bwd_ref(q, k, v, o, do, causal=causal, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if lse is None:
+        raise ValueError("flash_attention_bwd: the kernel takes the "
+                         "forward's lse (flash_attention_with_lse)")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do, lse)):
+        raise ValueError("flash_attention_bwd: the kernels' TMA and 16-byte "
+                         "loads need 16-byte aligned tensors")
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.to(q.dtype), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     fn = _bwd_library().flash_attention_bwd_launch
     with torch.cuda.device(q.device):

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the flash attention kernels: dense softmax
-attention, op for op as the JAX package's ``attention_ref``, and its
-gradient written out as formulas.  Both compute in float32 (float64
-inputs stay float64, for gradient checks)."""
+attention, op for op as the JAX package's ``attention_ref`` (optionally
+with its rows' log-sum-exp, which the forward kernels write for the
+backward), and its gradient written out as formulas.  All compute in
+float32 (float64 inputs stay float64, for gradient checks)."""
 from __future__ import annotations
 
 import torch
@@ -11,34 +12,56 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
-    """Dense softmax attention; q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D).  K/V are
-    repeated to Hq heads, scores are float32, masked ``k_pos <= q_pos`` with
-    -1e30; the result is in q's dtype."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """scale q.k^T, (B, Hq, Sq, Sk), K repeated to Hq heads, masked
+    ``k_pos <= q_pos`` with -1e30."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     g = Hq // Hkv
+    kf = _wide(k)
     if g > 1:
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) * (D ** -0.5)
+        kf = torch.repeat_interleave(kf, g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), kf) * (D ** -0.5)
     if causal:
         pos_k = torch.arange(Sk, device=q.device)
         pos_q = torch.arange(Sq, device=q.device)
         mask = pos_k[None, :] <= pos_q[:, None]
         s = torch.where(mask[None, None], s, -1e30)
+    return s
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, return_lse: bool = False):
+    """Dense softmax attention; q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D).  K/V are
+    repeated to Hq heads, scores are float32, masked ``k_pos <= q_pos`` with
+    -1e30; the result is in q's dtype.  With ``return_lse`` -> (o, lse),
+    lse the natural-log row log-sum-exp of the scaled, masked scores,
+    (B, Hq, Sq) in float32 (what the forward kernels write)."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    s = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, _wide(v))
-    return o.to(q.dtype)
+    vf = _wide(v)
+    if Hq // Hkv > 1:
+        vf = torch.repeat_interleave(vf, Hq // Hkv, dim=2)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1)
+    return o
+
+
+def attention_delta_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(do * o) in float32, (B, Hq, Sq): the backward's first
+    pass."""
+    return torch.sum(_wide(do) * _wide(o), dim=-1).transpose(1, 2)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *,
-                      causal: bool = True):
+                      causal: bool = True, lse: torch.Tensor | None = None):
     """The gradient of ``attention_ref`` written out as formulas, in
-    float32: the row log-sum-exp ``lse`` of the scaled, masked scores,
-    P = exp(s - lse), delta = rowsum(do * o), dP = do . v^T,
+    float32: the row log-sum-exp ``lse`` of the scaled, masked scores
+    (computed here unless given, (B, Hq, Sq), as the forward kernels write
+    it), P = exp(s - lse), delta = rowsum(do * o), dP = do . v^T,
     dS = P * (dP - delta), then dq = scale dS . k, dk = scale dS^T . q and
     dv = P^T . do, the query heads of a group summed into their KV head.
     ``o`` is the forward's output.  Returns (dq, dk, dv) in the dtypes of
@@ -51,20 +74,16 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if g > 1:
         kf = torch.repeat_interleave(kf, g, dim=2)
         vf = torch.repeat_interleave(vf, g, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if causal:
-        pos_k = torch.arange(Sk, device=q.device)
-        pos_q = torch.arange(Sq, device=q.device)
-        mask = pos_k[None, :] <= pos_q[:, None]
-        s = torch.where(mask[None, None], s, -1e30)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = torch.exp(s - lse)
+    s = _scores(q, k, causal)
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse.to(s.dtype)[..., None])
     del s
     dof = _wide(do)
-    delta = torch.sum(dof * _wide(o), dim=-1)            # (B, Sq, Hq)
+    delta = attention_delta_ref(o, do)                   # (B, Hq, Sq)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - delta.transpose(1, 2)[..., None])
+    ds = p * (dp - delta[..., None])
     del p, dp
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale

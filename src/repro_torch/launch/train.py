@@ -26,8 +26,10 @@ from ..data import batch_for_step
 from ..devices import resolve_device
 from ..ft import FaultTolerantLoop, FTConfig
 from ..models import registry
+from ..models.param import init_params
 from ..optim import adamw
-from ..training import TrainConfig, init_train_state, make_train_step
+from ..training import TrainConfig, make_train_step
+from ..tree import leaves
 
 
 def main(argv=None) -> int:
@@ -56,7 +58,14 @@ def main(argv=None) -> int:
         compress_grads=args.compress_grads,
         opt=adamw.AdamWConfig(lr=args.lr, warmup_steps=10,
                               total_steps=args.steps))
-    params, opt_state = init_train_state(cfg, tc, 0, device)
+    # the state as the reference's CLI builds it: no error feedback, which
+    # compress_decompress starts at zero on the first compressed step, so a
+    # resume restores only params and the moments (a saved feedback is
+    # dropped, as there)
+    params = init_params(registry.specs(cfg), 0, device)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt_state = adamw.init_state(params)
     step_fn = make_train_step(cfg, tc, device=device)
 
     ckpt = Checkpointer(args.ckpt_dir, keep=2)

@@ -19,7 +19,7 @@ from repro_torch.core.dse import DSEConfig, run_dse  # noqa: E402
 from repro_torch.devices import resolve_device  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention)
+    attention_ref, flash_attention, flash_attention_with_lse)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     tiles)
 from repro_torch.kernels.linear_scan import (  # noqa: E402
@@ -304,12 +304,14 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
     assert flash_attention.launches == before + 2
 
 
-# (B, S, Hq, Hkv, D): ragged head counts (3 over 1, 6 over 2, 5 over 5),
-# every head dim, S = 64 and 192 on the SIMT forward (D = 32: the wgmma
-# forward's tiles are 128), and the two models' shapes at B = 1
+# (B, S, Hq, Hkv, D): ragged head counts (3 over 1, 6 over 2, 5 over 5, 9
+# over 3), every head dim, S = 64 and 192 on the SIMT forward (D = 32: the
+# wgmma forward's tiles are 128), several 64-row q tiles per 128-key tile
+# of the wgmma backward (S = 384, 256), and the two models' shapes at B = 1
 BWD_SHAPES = [(1, 128, 3, 1, 16), (2, 64, 6, 2, 32), (1, 192, 5, 5, 32),
-              (2, 128, 6, 2, 64), (1, 256, 4, 2, 128),
-              (1, 2048, 16, 16, 128), (1, 2048, 32, 8, 128)]
+              (2, 128, 6, 2, 64), (1, 256, 4, 2, 128), (1, 384, 6, 2, 64),
+              (2, 256, 9, 3, 128), (1, 2048, 16, 16, 128),
+              (1, 2048, 32, 8, 128)]
 # relative L2 error of dq, dk, dv against attention_bwd_ref on the same
 # inputs: float32 sums in another order (dq's atomics in a varying one);
 # bf16 rounds the three outputs to 8 mantissa bits
@@ -331,10 +333,10 @@ def test_flash_backward_kernel_matches_plain(cuda, no_tf32, shape, dtype,
                                                      flash_attention_bwd)
     B, S, Hq, Hkv, D = shape
     q, k, v = _qkv(B, S, S, Hq, Hkv, D, dtype, cuda, seed=2)
-    o = flash_attention(q, k, v, causal=causal)
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
     do = _qkv(B, S, S, Hq, Hkv, D, dtype, cuda, seed=3)[0]
     before = flash_attention.bwd_launches
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == before + 1
     want = attention_bwd_ref(q, k, v, o, do, causal=causal)
@@ -378,6 +380,73 @@ def test_flash_backward_refuses_double_backward_and_bad_inputs(cuda):
         flash_attention_bwd(q[:, :96], k, v, q[:, :96], q[:, :96])
     with pytest.raises(ValueError, match="one device"):
         flash_attention_bwd(q, k, v, q, q.cpu())
+
+
+# the forward kernels' lse against attention_ref's: float32 sums in another
+# order; the wgmma kernel keeps m and l in base 2 (exp2, log2, times ln 2)
+LSE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_forward_writes_lse(cuda, no_tf32, shape, dtype):
+    """Both forward kernels (every tile) write the plain lse, and their o
+    is the same, bit for bit, whether or not lse is asked for."""
+    *dims, causal = shape
+    q, k, v = _qkv(*dims, dtype, cuda, seed=6)
+    _, want = attention_ref(q, k, v, causal=causal, return_lse=True)
+    for blk_q, blk_k in tiles(dtype, dims[-1]):
+        before = flash_attention.launches
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal,
+                                          blk_q=blk_q, blk_k=blk_k)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert lse.dtype == torch.float32 and lse.shape == want.shape
+        torch.testing.assert_close(lse, want, rtol=LSE_TOL, atol=LSE_TOL)
+        assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                              blk_q=blk_q, blk_k=blk_k))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_backward_at_other_lengths(cuda, no_tf32, D, causal):
+    """Sq = 192 (three 64-row q tiles, not a multiple of the forward's
+    128) against Sk = 384 (three 128-key tiles), GQA 6 over 2: o and lse
+    from attention_ref on the card."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+    q, k, v = _qkv(2, 192, 384, 6, 2, D, torch.bfloat16, cuda, seed=7)
+    do = _qkv(2, 192, 384, 6, 2, D, torch.bfloat16, cuda, seed=8)[0]
+    o, lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, causal=causal)
+    torch.cuda.synchronize()
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel_l2(g, w) <= BWD_TOL[torch.bfloat16]
+
+
+def test_flash_wgmma_backward_refuses_what_it_does_not_take(cuda):
+    """bf16 at D = 64, 128 needs Sk a multiple of 128 (the SIMT kernel's
+    64 is not taken instead), the forward's lse, and aligned tensors."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = _qkv(1, 192, 192, 2, 1, 64, torch.bfloat16, cuda)
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    before = flash_attention.bwd_launches
+    with pytest.raises(ValueError, match="multiples of 64 and 128"):
+        flash_attention_bwd(q, k, v, o, q, lse=lse)
+    q, k, v = _qkv(1, 256, 256, 2, 1, 64, torch.bfloat16, cuda)
+    o, lse = flash_attention_with_lse(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, q)
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention_bwd(q, k, v, o, q, lse=lse[:, :, :128])
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted[1:].copy_(q.flatten())
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd(shifted[1:].view(q.shape), k, v, o, q, lse=lse)
+    assert flash_attention.bwd_launches == before
 
 
 # ----------------------------------------------------------------------

@@ -592,6 +592,70 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     assert "resumed from step 2" in capsys.readouterr().out
 
 
+# the train CLI's resume, as the reference's: its state is params and
+# AdamW's moments (no error feedback); --compress-grads starts the feedback
+# at zero on its first step, also after a resume, and a saved feedback is
+# dropped on restore (ROADMAP §3, kept on purpose)
+CLI_ARGS = ["--device", "cpu", "--arch", "olmo-1b", "--batch", "2", "--seq",
+            "16", "--ckpt-every", "1", "--lr", "3e-3", "--steps", "2"]
+
+
+def _cli_loss(argv, capsys) -> float:
+    assert train_cli.main(argv) == 0
+    out = capsys.readouterr().out
+    return float(out.split("final loss ")[1].split(",")[0])
+
+
+def _cli_by_library(segments, drop_feedback: bool = True) -> float:
+    """The CLI's runs as library calls on the same batches: params from
+    seed 0, ``adamw.init_state``, then each (steps, compress) segment from
+    where the last one ended, with the error feedback dropped at the
+    break where ``drop_feedback``; the final loss on the next batch."""
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params
+    cfg = REGISTRY["olmo-1b"].reduced()
+    params = init_params(registry.specs(cfg), 0, "cpu")
+    opt = adamw.init_state(params)
+    step = 0
+    for n, compress in segments:
+        tc = TrainConfig(compress_grads=compress, opt=adamw.AdamWConfig(
+            lr=3e-3, warmup_steps=10, total_steps=n))
+        fn = make_train_step(cfg, tc, device="cpu")
+        if drop_feedback:
+            opt = {k: v for k, v in opt.items() if k != "error_feedback"}
+        for i in range(step, step + n):
+            params, opt, _ = fn(params, opt, batch_for_step(
+                i, global_batch=2, seq=16, vocab=cfg.vocab))
+        step += n
+    with torch.no_grad():
+        return float(registry.loss_fn(params, batch_for_step(
+            step, global_batch=2, seq=16, vocab=cfg.vocab), cfg,
+            device="cpu"))
+
+
+# the CLI prints the loss to 4 decimals; the library runs the same steps
+PRINTED = 1e-4
+
+
+@pytest.mark.parametrize("saved_compressed", [False, True],
+                         ids=["a-saved-plain", "b-saved-compressed"])
+def test_train_cli_resumes_into_compression(tmp_path, capsys,
+                                            saved_compressed):
+    """(a) a checkpoint saved without ``--compress-grads`` resumes with it;
+    (b) one saved with it resumes with it, dropping the saved feedback as
+    the reference's CLI does.  Each against the same steps taken through
+    the library (the two packages draw other weights)."""
+    first = ["--compress-grads"] if saved_compressed else []
+    _cli_loss(CLI_ARGS + ["--ckpt-dir", str(tmp_path)] + first, capsys)
+    got = _cli_loss(CLI_ARGS + ["--ckpt-dir", str(tmp_path), "--resume",
+                                "--compress-grads"], capsys)
+    segments = [(2, saved_compressed), (2, True)]
+    assert abs(got - _cli_by_library(segments)) <= PRINTED
+    if saved_compressed:  # keeping the feedback would give another loss
+        assert abs(got - _cli_by_library(segments, drop_feedback=False)) \
+            > 100 * PRINTED
+
+
 def test_restore_refuses_a_format_it_does_not_read(tmp_path):
     """A leaf whose stored dtype is not its logical one (the reference's
     float8 views) raises instead of loading as raw bits."""
