@@ -9,9 +9,11 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 
 1. require CUDA; print the card's name and power limit; build the
    ``maestro_eval``, ``flash_attention`` (forward and backward, two
-   libraries) and ``linear_scan`` kernels from their sources under
-   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, all at once)
-   and print the build seconds and ptxas registers and spills;
+   libraries) and ``linear_scan`` (forward and backward, two libraries)
+   kernels from their sources under ``src/repro_torch/kernels/*/csrc``
+   (one ``nvcc`` each, all at once) and print the build seconds and ptxas
+   registers and spills (by kernel for the SIMT flash kernels at D = 96
+   and the linear_scan backward);
    ``cuobjdump -sass`` of the flash forward library and of the flash
    backward library must each show HGMMA (wgmma on the tensor cores) and
    UTMALDG (TMA loads);
@@ -77,14 +79,21 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    start, as the fixture; the three launch counts 0;
 6. ``flash_attention`` against its plain version (``attention_ref``) with
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
-   the SIMT kernel) and bf16 (2e-2, the wgmma kernel), then at the LLM
-   path's shape (B=2, S=2048, 32 query heads over 8 KV heads, head dim 128,
+   the SIMT kernel; D = 96 on the SIMT kernel in both dtypes) and bf16
+   (2e-2, the wgmma kernel), then at the LLM path's shape (B=2, S=2048, 32 query heads over 8 KV heads, head dim 128,
    bf16, causal; 2e-2), each at every tile its kernel takes;
 7. llama3-8b at full width and depth (32 layers, d_model 4096, d_ff 14336,
    vocab 128256) with random weights drawn on the card from seed 0:
    ``loss_fn`` at B=2, S=2048 (finite, near ln(vocab)), timed; the same
    forward with ``layers.flash_attention`` forced onto ``attention_ref``
    (loss within 1e-3 relative; the last logits' rel L2 printed);
+7b. phi-3-vision-4.2b at full width and depth (32 layers, d_model 3072,
+   32/32 heads, head dim 96, vocab 32064, bf16, seed 0): ``loss_fn`` at
+   B=2 on 576 frontend patch embeddings and 1472 text tokens (S = 2048):
+   finite, within 1.0 of ln(vocab), exactly 32 ``flash_attention``
+   launches (the SIMT kernel at D = 96), timed; the ``attention_ref``
+   route's loss within 1e-3; the kernel at that shape against
+   ``attention_ref`` (2e-2) and timed beside it, SDPA and the bound;
 8. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
    6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
    then prefill-then-decode against the full-sequence forward on one
@@ -105,6 +114,15 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    c = T = 127 (also with a carried state); o and the final state are both
    checked; at rwkv6's shape and ``HANDOFF_SCAN`` the kernel is also held
    within max(1e-6, 2x the plain version's own) rel L2 of a float64 scan;
+   then the ``linear_scan`` backward (``linear_scan_bwd`` on the forward
+   kernel's states) against ``linear_scan_bwd_ref`` at rwkv6's train
+   shape, ``HANDOFF_SCAN`` (state0 and dS_T given), zamba2's post-update
+   scan and ragged shapes (T = c, c = 37, c = 256 with K < 64 and V > 64,
+   c = 48; state0 and dS_T given; float32 and bf16), every 13th log_w
+   below the -60/c clamp: each gradient's rel L2 within 1e-3 of the
+   float32 plain version and within max(1e-5, 2x the plain version's own)
+   of a float64 backward, bf16 inputs within 1e-2 of the float32 formulas;
+   log_w's gradient 0 where the clamp binds; two calls bit-identical;
 11. rwkv6-1.6b at full width and depth (24 layers, d_model 2048, d_ff 7168,
    vocab 65536) with random weights drawn on the card from seed 0:
    ``loss_fn`` at B=2, S=2048 (finite; 24 launches), timed; the same
@@ -138,22 +156,39 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    autograd, in bf16 (loss 1e-3, grad_norm 1e-2 relative) and on a float32
    copy (loss 1e-5, every gradient leaf 1e-4 rel L2, each printed); a
    checkpoint round trip of reduced olmo-1b on the card (bit-equal);
-   reduced rwkv6-1.6b training on the card raises (no ``linear_scan``
-   backward kernel, ROADMAP queue 2); then the backward timed at
-   llama3-8b's and olmo-1b's shapes beside its plain version, SDPA's
-   backward (``library_ms``) and the bound, with its delta pass timed
-   apart and the forward timed with and without its lse store.
+   then the backward timed at llama3-8b's and olmo-1b's shapes beside its
+   plain version, SDPA's backward (``library_ms``) and the bound, with its
+   delta pass timed apart and the forward timed with and without its lse
+   store; then rwkv6-1.6b (24 layers, d_model 2048, d_ff 7168, vocab
+   65536, bf16, seed 0) trains the same way: 3 steps, 48 forward and 24
+   backward ``linear_scan`` launches a step, tokens/s, peak memory, one
+   step profiled; one step's gradients on the kernel route against
+   ``linear_scan_ref`` under autograd in bf16 (loss 1e-3, grad_norm 1e-2);
+   in float32, on a copy of the trained params and on the weights of seeds
+   0 and 1, the scan kernel's forward on each layer's own inputs against a
+   float64 scan (within 2 x ``linear_scan_ref``'s error), then one step's
+   gradients on eight routes of the scan (``phase_train_witness``): the
+   backward kernel within 1e-3 of ``linear_scan_bwd_ref`` and of a float64
+   backward on the same forward in every leaf, the decay leaves' gradients
+   exactly 0, the loss within 1e-4, and every leaf within max(1e-3, 2 x the
+   spread of the plain route and of two copies moved by unit-roundoff noise)
+   of the route whose scan is float64; then
+   ``python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 2`` on
+   the card (reduced); last, the ``linear_scan`` backward timed at rwkv6's
+   shape (the call, each pass, by device time) beside its plain version
+   and the bound.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
 door, the network search and the serving tier, which must launch none;
-one ``loss_fn`` forward of each model; each serving run; the olmo-1b
-train steps) and read just after it.
+one ``loss_fn`` forward of each model; each serving run; the olmo-1b and
+the rwkv6-1.6b train steps) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -182,8 +217,12 @@ FLASH_SHAPES = [  # tests/test_kernels.py:19-28, (B, Sq, Sk, Hq, Hkv, D, causal)
     (1, 256, 256, 8, 2, 128, True),
     (2, 128, 128, 2, 2, 64, False),
     (1, 512, 512, 2, 2, 64, True),
+    (1, 256, 256, 4, 2, 96, True),     # phi-3-vision-4.2b's head dim
 ]
 LLM_SHAPE = (2, 2048, 2048, 32, 8, 128, True)  # llama3-8b, loss_fn at S=2048
+# phi-3-vision-4.2b's loss_fn: 576 patch embeddings + 1472 text tokens
+PHI3_SHAPE = (2, 2048, 2048, 32, 32, 96, True)
+PHI3_TEXT = 1472
 # linear_scan vs linear_scan_ref: float32 sums in another order behind the
 # two-sided exp(+-P) factors (1e-3); bf16 inputs and outputs (5e-2);
 # tests/test_kernels.py's
@@ -208,6 +247,20 @@ WEAK_DECAY = 0.01
 SERVE_SCANS = [(4, 64, 32, 64, 64, False, True, 256),
                (4, 96, 32, 64, 64, False, True, 256),
                (1, 127, 32, 64, 64, False, True, 256)]
+# linear_scan_bwd vs linear_scan_bwd_ref, (shape, dtype, state0 and dS_T
+# given): rwkv6-1.6b's train step (neither given), HANDOFF_SCAN, zamba2's
+# post-update scan, and ragged shapes: T = c = 64, c = 37 < 64, c = 256
+# with K < 64 and V > 64 (two V slices), c = 48 with K = 48, V = 80
+SCAN_BWD_RAGGED = [(2, 64, 2, 16, 16, False, True, 64),
+                   (2, 37, 2, 16, 24, False, True, 64),
+                   (1, 512, 2, 32, 96, True, False, 256),
+                   (2, 96, 2, 48, 80, False, True, 48)]
+SCAN_BWD_CASES = [(RWKV_SCAN, torch.float32, False),
+                  (HANDOFF_SCAN, torch.float32, True),
+                  (MAMBA_SCAN, torch.float32, False)] + [
+    (s, dt, True) for s in SCAN_BWD_RAGGED
+    for dt in (torch.float32, torch.bfloat16)]
+GRAD_NAMES = ("dr", "dk", "dv", "dlog_w", "du", "dstate0")
 
 
 class SmokeError(RuntimeError):
@@ -278,10 +331,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # ----------------------------------------------------------------------
 
 def phase_build() -> None:
-    """All four kernel sources (maestro_eval, the flash forward, linear_scan,
-    the flash backward), one nvcc each, started together; then the SASS of
-    the flash forward library and of the flash backward library must each
-    hold the tensor-core product and a TMA load."""
+    """All five kernel sources (maestro_eval, the flash forward, linear_scan,
+    the flash backward, the linear_scan backward), one nvcc each, started
+    together; registers and spills of the SIMT flash kernels at D = 96 and
+    of the linear_scan backward printed; then the SASS of the flash forward
+    library and of the flash backward library must each hold the
+    tensor-core product and a TMA load."""
     from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     from repro_torch.kernels import _build
@@ -291,6 +346,8 @@ def phase_build() -> None:
         "repro_torch.kernels.linear_scan.linear_scan"))]
     fa = import_module("repro_torch.kernels.flash_attention.flash_attention")
     srcs.append((fa.BWD_SRC, fa.NVCC_FLAGS))  # the backward, its own library
+    ls = import_module("repro_torch.kernels.linear_scan.linear_scan")
+    srcs.append((ls.BWD_SRC, ls.NVCC_FLAGS))  # the scan backward's library
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as ex:
         done = [ex.submit(_build.build, *sf) for sf in srcs]
@@ -301,31 +358,39 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas {src.stem}: {line.strip()}")
     log(f"[build] wall {time.perf_counter() - t0:.2f} s")
-    spills = ptxas_spills(results[3][2], "flash_bwd_wgmma_kernel")
+    spills = {fn: (st, ld) for fn, _, st, ld in ptxas_table(results[3][2])
+              if "flash_bwd_wgmma_kernel" in fn}
     log(f"[build] ptxas spill bytes (stores, loads) of the wgmma backward "
         f"by instance: {spills or 'not rebuilt in this run'}")
     check(all(v == (0, 0) for v in spills.values()), "the wgmma flash "
           f"backward spills registers: {spills}")
+    for (src, _), (_, _, report) in zip(srcs[1:], results[1:]):
+        for fn, regs, st, ld in ptxas_table(report):
+            if "Li96E" in fn or src.stem == "linear_scan_bwd":
+                log(f"[build] ptxas {src.stem} {fn}: {regs} registers, "
+                    f"spill stores {st} bytes, spill loads {ld} bytes")
     sass_check(results[1][0])
     sass_check(results[3][0])
 
 
-def ptxas_spills(report: str, kernel: str) -> dict:
-    """{mangled instance: (spill store bytes, spill load bytes)} of the
-    entry functions whose name holds ``kernel``, from ``-Xptxas -v``'s
-    report (empty when the library was not rebuilt)."""
+def ptxas_table(report: str) -> list[tuple[str, int, int, int]]:
+    """(mangled entry function, registers, spill store bytes, spill load
+    bytes) of each kernel in ``-Xptxas -v``'s report (empty when the
+    library was not rebuilt)."""
     import re
-    out, current = {}, None
+    out, current, spills = [], None, (0, 0)
     for line in report.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1)
+            current, spills = m.group(1), (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and current is not None and kernel in current:
-            out[current] = (int(m.group(1)), int(m.group(2)))
         if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            out.append((current, int(m.group(1)), *spills))
             current = None
     return out
 
@@ -1510,6 +1575,116 @@ def flash_record(device, launches: int, max_abs_err: float,
     }
 
 
+def phase_phi3(device, name: str) -> dict:
+    """phi-3-vision-4.2b at full width and depth (32 layers, d_model 3072,
+    32/32 heads, head dim 96, vocab 32064, bf16) with random weights drawn
+    on the card from seed 0: ``loss_fn`` at B=2 on 576 frontend patch
+    embeddings (``frontend_dim`` 1024, N(0, 1) from the seed) and 1472 text
+    tokens, S = 2048; once to warm up, then timed with the flash launch
+    count set to 0 just before and read just after (32: one a layer, on
+    the SIMT kernel at D = 96); the loss finite and within 1.0 of
+    ln(vocab); the same forward on the ``attention_ref`` route, loss within
+    1e-3 relative.  Then the kernel at ``PHI3_SHAPE`` against
+    ``attention_ref`` (2e-2) and timed beside it, SDPA and the bound.
+    Returns the D = 96 forward's record."""
+    import torch.nn.functional as F
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers, registry
+    from repro_torch.models.param import count_params, init_params
+    cfg = REGISTRY["phi-3-vision-4.2b"]
+    t1 = time.perf_counter()
+    params = init_params(registry.specs(cfg), 0, device)
+    sync(device)
+    log(f"[phi3] {cfg.name} at full width and depth: "
+        f"{count_params(registry.specs(cfg))} parameters drawn on the card "
+        f"in {time.perf_counter() - t1:.2f} s, head dim "
+        f"{cfg.head_dim_}")
+    B, S = PHI3_SHAPE[0], PHI3_SHAPE[1]
+    batch = llm_batch(cfg, device, B, PHI3_TEXT)
+    rng = np.random.default_rng(0)
+    batch["frontend"] = torch.from_numpy(rng.standard_normal(
+        (B, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)).to(
+        device)
+    check(cfg.frontend_len + PHI3_TEXT == S, "phi-3's sequence is not 2048")
+    with torch.no_grad():
+        registry.loss_fn(params, batch, cfg)
+        sync(device)
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        loss = float(registry.loss_fn(params, batch, cfg))
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = flash_attention.launches
+        wrapper = layers.flash_attention
+        layers.flash_attention = attention_ref
+        try:
+            loss_p = float(registry.loss_fn(params, batch, cfg))
+        finally:
+            layers.flash_attention = wrapper
+        check(flash_attention.launches == launches, "the attention_ref "
+              "route launched the kernel")
+    rel = abs(loss - loss_p) / abs(loss_p)
+    log(f"[phi3] loss_fn B={B} S={S} ({cfg.frontend_len} patches + "
+        f"{PHI3_TEXT} tokens): loss {loss:.6g} (ln vocab "
+        f"{np.log(cfg.vocab):.6g}), {seconds:.4f} s, {B * S / seconds:.6g} "
+        f"tokens/s, flash_attention launches {launches}; attention_ref "
+        f"route loss {loss_p:.6g}, rel err {rel:.3g} (limit 1e-3)")
+    check(np.isfinite(loss) and abs(loss - np.log(cfg.vocab)) < 1.0,
+          f"phi-3 loss {loss} is not near ln(vocab)")
+    check(launches == cfg.n_layers, f"phi-3 loss_fn launched flash_attention "
+          f"{launches} times, not once per layer ({cfg.n_layers})")
+    check(rel <= 1e-3, "phi-3's kernel route disagrees with the "
+          "attention_ref route")
+    del params, batch
+    torch.cuda.empty_cache()
+
+    Bq, Sq, Sk, Hq, Hkv, D, causal = PHI3_SHAPE
+    q, k, v = qkv(PHI3_SHAPE, torch.bfloat16, device, seed=4)
+    got = flash_attention(q, k, v, causal=causal).float()
+    want = attention_ref(q, k, v, causal=causal).float()
+    d = (got - want).abs()
+    bad = int((d > 2e-2 + 2e-2 * want.abs()).sum())
+    abs_err = float(d.max())
+    log(f"[flash-vs-plain] {PHI3_SHAPE} bf16 (SIMT at D = 96): max abs err "
+        f"{abs_err:.3g}, beyond atol=rtol=2e-2: {bad}")
+    check(bad == 0 and bool(torch.isfinite(got).all()), "the D = 96 kernel "
+          "disagrees with attention_ref at phi-3's shape")
+    del got, want, d
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), 20)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    flops = 4 * Bq * Hq * D * pairs
+    nbytes = 2 * (2 * Bq * Sq * Hq * D + 2 * Bq * Sk * Hkv * D)
+    mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
+    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / mem_bw * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"[kernel] flash_attention {PHI3_SHAPE} bf16 (SIMT, float32 FMAs): "
+        f"kernel {ms:.4f} ms ({flops / ms / 1e9:.6g} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.4f} ms "
+        f"(operations {ops_ms:.4f}: {flops / 1e9:.6g} GFLOP at 989 TFLOP/s "
+        f"bf16; bytes {bytes_ms:.4f}); {bound / ms:.4f} of the bound; at the "
+        f"float32 rate (67 TFLOP/s) the least time is "
+        f"{flops / PEAK_FP32 * 1e3:.4f} ms")
+    return {
+        "name": "flash_attention (D=96)", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "design": "the SIMT flash_kernel at D = 96 (bf16 widened to float32, "
+                  "float32 FMAs; no wgmma route at D = 96 yet), BQ=64, "
+                  f"BK=64; times at phi-3-vision-4.2b's {PHI3_SHAPE}",
+        "launches": launches, "max_abs_err": abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+
+
 # ----------------------------------------------------------------------
 # the RWKV-6 path: linear_scan, rwkv6-1.6b forward and serving
 # ----------------------------------------------------------------------
@@ -1560,7 +1735,9 @@ def scan_f64(r, k, v, log_w, u, state0, chunk: int, post: bool):
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.double() - want).norm() / want.norm())
+    """|got - want| / |want| (the absolute |got - want| where want is 0)."""
+    d, w = float((got.double() - want).norm()), float(want.norm())
+    return d / w if w > 0 else d
 
 
 def phase_scan_vs_plain(device) -> float:
@@ -1719,6 +1896,174 @@ def scan_record(device, launches: int, max_abs_err: float,
     }
 
 
+def scan_bwd_inputs(shape, dtype, device, given: bool):
+    """``scan_inputs`` (state0 None unless ``given``) with every 13th log_w
+    at -120/c, below the -60/c clamp, and the cotangents: dO ~ N(0, 1) in
+    ``dtype``, dS_T ~ N(0, 1) float32 or None unless ``given``."""
+    B, T, H, K, V, _, _, chunk = shape
+    decay = WEAK_DECAY if shape == HANDOFF_SCAN else 0.2
+    r, k, v, lw, u, s0 = scan_inputs(shape, dtype, device, seed=7,
+                                     state=given, decay=decay)
+    lw.view(-1)[::13] = -120.0 / min(chunk, T)
+    g = torch.Generator(device=device).manual_seed(8)
+    do = torch.randn((B, T, H, V), generator=g, device=device).to(dtype)
+    dS = torch.randn((B, H, K, V), generator=g, device=device) if given \
+        else None
+    return r, k, v, lw, u, s0 if given else None, do, dS
+
+
+def phase_scan_bwd_vs_plain(device) -> float:
+    """The backward kernel (``linear_scan_bwd`` on the forward kernel's
+    states) against ``linear_scan_bwd_ref`` at ``SCAN_BWD_CASES``, each
+    gradient by rel L2: float32 inputs within 1e-3 of the float32 plain
+    version and within max(1e-5, 2 x the plain version's own) of the
+    float64 backward (``linear_scan_bwd_ref`` on float64 copies); bf16
+    inputs within 1e-2 of the float32 formulas on the same rounded inputs;
+    log_w's gradient exactly 0 where the clamp binds; two calls
+    bit-identical.  Returns the largest absolute error against the plain
+    version."""
+    from repro_torch.kernels.linear_scan import (linear_scan_bwd,
+                                                 linear_scan_bwd_ref,
+                                                 linear_scan_with_states)
+    worst = 0.0
+    for shape, dt, given in SCAN_BWD_CASES:
+        *_, post, _, chunk = shape
+        ins = scan_bwd_inputs(shape, dt, device, given)
+        r, k, v, lw, u, s0, do, dS = ins
+        _, _, states = linear_scan_with_states(r, k, v, lw, u, s0,
+                                               chunk=chunk, post_update=post)
+
+        def run():
+            return linear_scan_bwd(r, k, v, lw, u, s0, do, dS, chunk=chunk,
+                                   post_update=post, states=states)
+        got, again = run(), run()
+        sync(device)
+        same = all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again))
+        plain = linear_scan_bwd_ref(
+            *(None if t is None else t.float() for t in ins), chunk=chunk,
+            post_update=post)
+        exact = linear_scan_bwd_ref(
+            *(None if t is None else t.double() for t in ins), chunk=chunk,
+            post_update=post) if dt == torch.float32 else None
+        lo = float(np.float32(-60.0 / min(chunk, shape[1])))
+        clamped = (lw < lo) | (lw > 0)
+        zero = bool((got[3][clamped] == 0).all())
+        ok = same and zero and all(bool(torch.isfinite(g).all())
+                                   for g in got if g is not None)
+        parts = []
+        for i, name in enumerate(GRAD_NAMES):
+            if got[i] is None:
+                continue
+            check(got[i].dtype == (dt if i < 3 else torch.float32),
+                  f"linear_scan_bwd {shape}: {name} in {got[i].dtype}")
+            e_kp = rel_l2(got[i], plain[i].double())
+            worst = max(worst, float((got[i].float() - plain[i]).abs().max()))
+            if exact is None:
+                parts.append(f"{name} {e_kp:.3g}")
+                ok = ok and e_kp <= 1e-2
+                continue
+            e_k, e_p = rel_l2(got[i], exact[i]), rel_l2(plain[i], exact[i])
+            lim = max(1e-5, 2 * e_p)
+            parts.append(f"{name} {e_kp:.3g} (f64: kernel {e_k:.3g}, plain "
+                         f"{e_p:.3g}, limit {lim:.3g})")
+            ok = ok and e_kp <= 1e-3 and e_k <= lim
+        log(f"[scan-bwd-vs-plain] {shape} {str(dt)[6:]}"
+            f"{' state0 dS_T' * given}: rel L2 against the float32 plain "
+            f"version (limit {1e-3 if exact is not None else 1e-2}): "
+            + "; ".join(parts) + f"; clamped log_w {int(clamped.sum())} with "
+            f"zero gradient {zero}; two calls bit-identical {same}")
+        check(ok, f"linear_scan_bwd {shape} {dt} disagrees with its plain "
+              "version or the float64 backward, or is not reproducible")
+        del ins, r, k, v, lw, u, s0, do, dS, states, got, again, plain, exact
+        torch.cuda.empty_cache()
+    return worst
+
+
+def scan_bwd_work(shape, given: bool) -> tuple[int, int]:
+    """(least float32 operations, bytes) of the scan's backward at
+    ``shape`` with float32 inputs.  Least: the token-by-token backward per
+    (b, t, h): the state again, S = w*S + k v^T (3KV); dS_prev = w*dS +
+    r dO^T (3KV); dr = S dO (2KV), dk = dS v (2KV), dv = k^T dS (2KV);
+    dlog_w = w * sum_v dS*S (2KV + K); exp(log_w) (K); with u the bonus
+    dbeta = dO.v (2V), its dr, dk and du terms (9K).  Bytes: r, k, log_w,
+    v and dO read once, dr, dk, dlog_w and dv written once, u read and du
+    written, and with state0 and dS_T those and dstate0."""
+    B, T, H, K, V, _, use_u, _ = shape
+    least = B * T * H * (14 * K * V + 2 * K + ((2 * V + 9 * K) if use_u
+                                              else 0))
+    nbytes = 4 * (6 * B * T * H * K + 3 * B * T * H * V
+                  + (2 * H * K if use_u else 0)
+                  + (3 * B * H * K * V if given else 0))
+    return least, nbytes
+
+
+def scan_bwd_record(device, launches: int, max_abs_err: float,
+                    name: str) -> dict:
+    """The backward at rwkv6-1.6b's shape as its train step runs it
+    (float32 inputs, u, no state0 or dS_T; the forward kernel's states):
+    the whole call and each pass alone (CUDA events; ``phase_train``'s
+    profile gives each pass's device time in the train step), the plain
+    version's time and the bound."""
+    from repro_torch.kernels.linear_scan import (linear_scan_bwd,
+                                                 linear_scan_bwd_ref,
+                                                 linear_scan_with_states)
+    from repro_torch.kernels.linear_scan.linear_scan import (_bwd_library,
+                                                             bwd_args)
+    *_, post, _, chunk = RWKV_SCAN
+    r, k, v, lw, u, s0, do, dS = scan_bwd_inputs(RWKV_SCAN, torch.float32,
+                                                 device, False)
+    _, _, states = linear_scan_with_states(r, k, v, lw, u, s0, chunk=chunk,
+                                           post_update=post)
+
+    def call():
+        return linear_scan_bwd(r, k, v, lw, u, s0, do, dS, chunk=chunk,
+                               post_update=post, states=states)
+    ms = time_ms(call, 20)
+    plain_ms = time_ms(lambda: linear_scan_bwd_ref(
+        r, k, v, lw, u, s0, do, dS, chunk=chunk, post_update=post), 3)
+    flops, nbytes = scan_bwd_work(RWKV_SCAN, False)
+    mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / mem_bw * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"[kernel] linear_scan_bwd {RWKV_SCAN} float32: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms (operations "
+        f"{ops_ms:.4f}: {flops / 1e9:.6g} GFLOP token by token at 67 TFLOP/s "
+        f"float32; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} MB); "
+        f"{bound / ms:.4f} of the bound; launches on the main path "
+        f"{launches}")
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    nt = T // chunk * -(-chunk // 64)
+    outs = [torch.empty_like(t) for t in (r, k, v)] + [
+        torch.empty_like(lw), torch.zeros((B, H, nt, K), device=device),
+        torch.zeros((B, H, K, V), device=device)]
+    scratch = torch.empty(B * H * nt * K * V, device=device)
+    args = bwd_args(r, k, v, lw, u, do, None, states, scratch, *outs,
+                    chunk, post, torch.cuda.current_stream(device).cuda_stream)
+    lib = _bwd_library()
+    for which, pname in enumerate(("reverse state", "reverse hand-off",
+                                   "gradient")):
+        p_ms = time_ms(lambda: lib.linear_scan_bwd_pass(which, *args), 20)
+        log(f"[kernel] linear_scan_bwd {pname} pass alone: {p_ms:.4f} ms")
+    del outs, scratch, states
+    return {
+        "name": "linear_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/"
+                  "linear_scan_bwd.cu",
+        "replaces": "src/repro/kernels/linear_scan/linear_scan.py:84",
+        "design": "no TPU counterpart (XLA's gradient of chunked_linear_attn,"
+                  " src/repro/models/ssm.py:29-78): float32 SIMT, reverse "
+                  "state pass, reverse hand-off, gradient pass per tile of up "
+                  "to 64 rows on the forward's saved states; du from "
+                  "per-tile partials, no atomics",
+        "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
 def top2_gap(logits: torch.Tensor) -> list[float]:
     """Per row, the largest logit less the second largest."""
     top = logits.topk(2, dim=-1).values
@@ -1784,7 +2129,8 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # (B, S, Hq, Hkv, D, causal): ragged heads, every head dim, both masks;
 # S = 192 on the SIMT forward (D = 32: the wgmma one's tiles are 128)
 BWD_SHAPES = [(1, 128, 3, 1, 16, True), (2, 128, 6, 2, 64, False),
-              (1, 192, 5, 5, 32, True), (1, 256, 4, 2, 128, False)]
+              (1, 192, 5, 5, 32, True), (1, 256, 4, 2, 128, False),
+              (1, 256, 4, 2, 96, True)]
 OLMO_BWD = (2, 2048, 16, 16, 128, True)    # olmo-1b, a train step's shape
 LLAMA_BWD = (2, 2048, 32, 8, 128, True)    # llama3-8b's
 TRAIN_SHAPE = (2, 2048)                    # olmo-1b train steps: B, S
@@ -1976,29 +2322,59 @@ def tree_items(tree, prefix: str = ""):
             yield f"{prefix}{k}", tree[k]
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_bwd
+    from repro_torch.kernels.maestro_eval import maestro_eval
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "linear_scan": linear_scan.launches,
+            "linear_scan_bwd": linear_scan_bwd.launches,
+            "maestro_eval": maestro_eval.launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_bwd
+    from repro_torch.kernels.maestro_eval import maestro_eval
+    maestro_eval.launches = linear_scan.launches = 0
+    linear_scan_bwd.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
+
+
+def train_kernels(cfg) -> tuple[str, str, str]:
+    """(forward count, backward count, the backward's device-kernel name
+    fragment) of the kernels a train step of ``cfg`` runs."""
+    if cfg.family == "ssm":
+        return "linear_scan", "linear_scan_bwd", "lsb_"
+    return "flash_attention", "flash_attention_bwd", "flash_bwd"
+
+
 def phase_train(device, card: str = "", cfg=None):
-    """olmo-1b at full width and depth (16 layers, d_model 2048, vocab
-    50304, bf16) from seed 0: ``TRAIN_STEPS`` steps of ``make_train_step``
+    """``cfg`` (olmo-1b by default; rwkv6-1.6b) at full width and depth
+    (bf16) from seed 0: ``TRAIN_STEPS`` steps of ``make_train_step``
     (default AdamW, full remat) at ``TRAIN_SHAPE`` through
     ``FaultTolerantLoop``, checkpoints off at this size (a period past the
-    run).  Every step: finite loss and grad_norm, 2 x 16 forward and 16
-    backward flash launches (each layer's forward runs again in the
-    backward).  Tokens/s per step (the first includes warm-up); peak
-    device memory; then one more step under ``torch.profiler``.  Returns
-    (params, launches of the backward, of the forward)."""
+    run), every launch count set to 0 just before the loop and read just
+    after.  Every step: finite loss and grad_norm, 2 x n_layers forward and
+    n_layers backward launches of the model's kernel (flash_attention, or
+    linear_scan for rwkv6; each layer's forward runs again in the
+    backward) and none of any other.  Tokens/s per step (the first
+    includes warm-up); peak device memory; then one more step under
+    ``torch.profiler``.  Returns (cfg, params, launches of the backward,
+    of the forward)."""
     import tempfile
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import REGISTRY
     from repro_torch.data import batch_for_step
     from repro_torch.ft import FaultTolerantLoop, FTConfig
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.linear_scan import linear_scan
-    from repro_torch.kernels.maestro_eval import maestro_eval
     from repro_torch.models.param import count_params
     from repro_torch.models import registry
     from repro_torch.training import (TrainConfig, init_train_state,
                                       make_train_step)
     cfg = cfg or REGISTRY["olmo-1b"]
+    fwd_name, bwd_name, frag = train_kernels(cfg)
     B, S = TRAIN_SHAPE
     tc = TrainConfig()
     t1 = time.perf_counter()
@@ -2013,13 +2389,13 @@ def phase_train(device, card: str = "", cfg=None):
 
     def wrapped(state, batch):
         p, o = state
-        f0, b0 = flash_attention.launches, flash_attention.bwd_launches
+        c0 = launch_counts()
         t0 = time.perf_counter()
         p, o, m = step(p, o, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # waits
+        c1 = launch_counts()
         steps.append((time.perf_counter() - t0, loss, gnorm,
-                      flash_attention.launches - f0,
-                      flash_attention.bwd_launches - b0))
+                      {n: c1[n] - c0[n] for n in c0}))
         return (p, o), m
 
     def batch_fn(i):
@@ -2029,32 +2405,28 @@ def phase_train(device, card: str = "", cfg=None):
     with tempfile.TemporaryDirectory() as d:
         loop = FaultTolerantLoop(wrapped, Checkpointer(d, keep=1), FTConfig(
             checkpoint_every=10 ** 9, async_save=False))
-        maestro_eval.launches = linear_scan.launches = 0
-        flash_attention.launches = flash_attention.bwd_launches = 0
+        reset_counts()
         (params, opt), end = loop.run((params, opt), batch_fn, 0,
                                       TRAIN_STEPS)
-        launches = (flash_attention.launches, flash_attention.bwd_launches,
-                    maestro_eval.launches, linear_scan.launches)
+        launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
-    for i, (wall, loss, gnorm, fl, bl) in enumerate(steps):
+    for i, (wall, loss, gnorm, n) in enumerate(steps):
         log(f"[train] step {i}: {wall:.4f} s, {B * S / wall:.6g} tokens/s, "
-            f"loss {loss:.6g}, grad_norm {gnorm:.6g}, flash_attention "
-            f"launches {fl} forward, {bl} backward")
+            f"loss {loss:.6g}, grad_norm {gnorm:.6g}, {fwd_name} launches "
+            f"{n[fwd_name]} forward, {n[bwd_name]} backward")
     log(f"[train] {cfg.name} B={B} S={S}: {TRAIN_STEPS} steps through "
         f"FaultTolerantLoop, {loop.restarts} restarts, stragglers "
-        f"{loop.straggler_steps}; launches: flash_attention {launches[0]} "
-        f"forward, {launches[1]} backward, maestro_eval {launches[2]}, "
-        f"linear_scan {launches[3]}; peak device memory "
-        f"{peak / 2 ** 30:.3f} GiB; {card}")
+        f"{loop.straggler_steps}; launches: " + ", ".join(
+            f"{n} {c}" for n, c in launches.items()) +
+        f"; peak device memory {peak / 2 ** 30:.3f} GiB; {card}")
     check(end == TRAIN_STEPS and len(steps) == TRAIN_STEPS,
           f"the loop ended at step {end} after {len(steps)} steps")
     check(all(np.isfinite(s[1]) and np.isfinite(s[2]) for s in steps),
           "a train step's loss or grad_norm is not finite")
-    check(all(s[3:] == (2 * cfg.n_layers, cfg.n_layers) for s in steps),
-          f"flash launches per step {[s[3:] for s in steps]}, not "
-          f"({2 * cfg.n_layers}, {cfg.n_layers})")
-    check(launches[2:] == (0, 0), "training launched maestro_eval or "
-          "linear_scan")
+    want = {n: 0 for n in launches}
+    want.update({fwd_name: 2 * cfg.n_layers, bwd_name: cfg.n_layers})
+    check(all(s[3] == want for s in steps), f"launches per step "
+          f"{[s[3] for s in steps]}, not {want}")
     batch = batch_fn(TRAIN_STEPS)
 
     def one_step():
@@ -2062,40 +2434,48 @@ def phase_train(device, card: str = "", cfg=None):
         params, opt, m = step(params, opt, batch)
         float(m["loss"])
     prof = profile_call(one_step, f"{cfg.name} train step B={B} S={S}",
-                        device, "flash_bwd")
-    bwd = {n: v for n, v in prof["by_name"].items() if "flash_bwd" in n}
+                        device, frag)
+    bwd = {n: v for n, v in prof["by_name"].items() if frag in n}
     bwd_us = sum(us for _, us in bwd.values())
     log("[train] the backward's kernels in the profiled step: " + "; ".join(
         f"{us / 1e3:.3f} ms in {c} x {n[:60]}" for n, (c, us) in
         sorted(bwd.items(), key=lambda kv: -kv[1][1])))
     warm = [B * S / s[0] for s in steps[1:]] or [B * S / steps[0][0]]
+    before = ("; with the float32 SIMT flash backward (H100 80GB HBM3, "
+              "700.00 W): 12685.9-13196.2 tokens/s, busy share "
+              "0.7022-0.8865, the backward 0.2823-0.2827 of busy"
+              if cfg.name == "olmo-1b" else "")
     log(f"[train] {cfg.name} step: {min(warm):.6g}-{max(warm):.6g} tokens/s "
         f"warm, busy share {prof['busy'] / prof['wall']:.4f} of the "
         f"profiled step ({prof['busy'] / prof['plain_wall']:.4f} of the "
         f"unprofiled step's wall), the backward "
-        f"{bwd_us / 1e6 / max(prof['busy'], 1e-12):.4f} of "
-        f"busy; PR 25 (H100 80GB HBM3, 700.00 W): 12685.9-13196.2 tokens/s, "
-        f"busy share 0.7022-0.8865, the backward 0.2823-0.2827 of busy")
+        f"{bwd_us / 1e6 / max(prof['busy'], 1e-12):.4f} of busy{before}")
     check(not any("flash_bwd_prep" in n for n in bwd), "the lse pass "
           "(flash_bwd_prep) still runs in the train step")
     del opt
     torch.cuda.empty_cache()
-    return cfg, params, launches[1], launches[0]
+    return cfg, params, launches[bwd_name], launches[fwd_name]
 
 
 def phase_train_plain_route(cfg, params, device, loss_tol: float,
                             leaf_tol: float | None = None,
                             norm_tol: float | None = None) -> None:
     """One step's loss and gradients (``registry.loss_fn`` and
-    ``torch.autograd.grad``) on the kernel route against the route with
-    ``layers.flash_attention`` forced onto ``attention_ref`` under autograd
-    (here only), at ``TRAIN_SHAPE``: the loss within ``loss_tol``
-    relative; every gradient leaf's rel L2 printed and held to
-    ``leaf_tol``, the global norm to ``norm_tol``, where given."""
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+    ``torch.autograd.grad``) on the kernel route against the route with the
+    model's kernel wrapper forced onto its plain version under autograd
+    (here only): ``layers.flash_attention`` onto ``attention_ref``, or for
+    rwkv6 ``scan_op`` onto ``linear_scan_ref``, at ``TRAIN_SHAPE``: the
+    loss within ``loss_tol`` relative; every gradient leaf's rel L2
+    printed and held to ``leaf_tol``, the global norm to ``norm_tol``,
+    where given."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.linear_scan import linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops as scan_ops
     from repro_torch.models import layers, registry
     from repro_torch.optim.adamw import global_norm
+    fwd_name, bwd_name, _ = train_kernels(cfg)
+    module, attr, plain = (scan_ops, "scan_op", linear_scan_ref) \
+        if cfg.family == "ssm" else (layers, "flash_attention", attention_ref)
     B, S = TRAIN_SHAPE
     batch = llm_batch(cfg, device, B, S, seed=3)
     names = [n for n, _ in tree_items(params)]
@@ -2106,25 +2486,24 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
         g = torch.autograd.grad(loss, flat)
         return float(loss.detach()), g
 
-    bwd0 = flash_attention.bwd_launches
+    bwd0 = launch_counts()[bwd_name]
     loss_k, g_k = grads()
-    check(flash_attention.bwd_launches == bwd0 + cfg.n_layers,
+    check(launch_counts()[bwd_name] == bwd0 + cfg.n_layers,
           "the kernel route did not run the backward kernel once a layer")
-    wrapper = layers.flash_attention
-    layers.flash_attention = attention_ref
-    launches = (flash_attention.launches, flash_attention.bwd_launches)
+    wrapper = getattr(module, attr)
+    setattr(module, attr, plain)
+    launches = launch_counts()
     try:
         loss_p, g_p = grads()
     finally:
-        layers.flash_attention = wrapper
-    check((flash_attention.launches, flash_attention.bwd_launches)
-          == launches, "the plain route launched a flash kernel")
+        setattr(module, attr, wrapper)
+    check(launch_counts() == launches, "the plain route launched a kernel")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     nk, np_ = float(global_norm(g_k)), float(global_norm(g_p))
     nrel = abs(nk - np_) / np_
     leaf = {n: rel_l2(a, b.double()) for n, a, b in zip(names, g_k, g_p)}
     log(f"[train-plain-route] {cfg.name} {str(cfg.dtype)[6:]} B={B} S={S} "
-        f"with flash_attention -> attention_ref: loss kernel {loss_k:.8g}, "
+        f"with {attr} -> {plain.__name__}: loss kernel {loss_k:.8g}, "
         f"plain {loss_p:.8g}, rel err {rel:.3g} (limit {loss_tol}); "
         f"grad_norm kernel {nk:.8g}, plain {np_:.8g}, rel err {nrel:.3g}"
         f"{'' if norm_tol is None else f' (limit {norm_tol})'}")
@@ -2137,22 +2516,291 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
           "route's")
 
 
+DECAY_LEAVES = ("blocks/w_base", "blocks/w_lora_a", "blocks/w_lora_b")
+
+
+def scan_f64_op(r, k, v, log_w, u=None, state0=None, *, chunk: int = 64,
+                post_update: bool = False):
+    """``scan_op`` with the scan itself in float64 (``scan_f64`` under
+    autograd) and o and the state handed back in float32: a route that
+    differs from the float32 plain route only in the scan's rounding."""
+    if state0 is None:
+        state0 = torch.zeros((r.shape[0], r.shape[2], r.shape[3],
+                              v.shape[-1]), dtype=torch.float64,
+                             device=r.device)
+    o, s = scan_f64(r, k, v, log_w, u, state0, chunk, post_update)
+    return o.to(r.dtype), s.float()
+
+
+class _SplitScan(torch.autograd.Function):
+    """A route of ``scan_op`` whose forward and backward are chosen apart:
+    the forward kernel (``fwd="kernel"``, ``linear_scan`` without grad) or
+    the float64 scan (``"f64"``); the backward ``linear_scan_bwd_ref`` in
+    float32 (``bwd="ref"``) or the float64 scan's autograd (``"f64"``).
+    Each such route differs from another in one half only."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, state0, chunk, post_update, fwd,
+                bwd):
+        from repro_torch.kernels.linear_scan import linear_scan
+        scan = linear_scan if fwd == "kernel" else scan_f64_op
+        with torch.no_grad():
+            o, s = scan(r, k, v, log_w, u, state0, chunk=chunk,
+                        post_update=post_update)
+        ctx.save_for_backward(r, k, v, log_w, u, state0)
+        ctx.chunk, ctx.post_update, ctx.bwd = chunk, post_update, bwd
+        return o, s
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        from repro_torch.kernels.linear_scan import linear_scan_bwd_ref
+        ins = ctx.saved_tensors
+        if ctx.bwd == "ref":
+            grads = linear_scan_bwd_ref(*ins, do, dstate, chunk=ctx.chunk,
+                                        post_update=ctx.post_update)
+            return (*grads, None, None, None, None)
+        x = [None if t is None else t.detach().double().requires_grad_()
+             for t in ins]
+        with torch.enable_grad():
+            o, s = scan_f64_op(*x, chunk=ctx.chunk,
+                               post_update=ctx.post_update)
+            wrt = [t for t in x if t is not None]
+            g = iter(torch.autograd.grad((o, s), wrt, (do, dstate),
+                                         allow_unused=True))
+        out = []
+        for t in ins:
+            gt = None if t is None else next(g)
+            out.append(None if t is None else torch.zeros_like(t)
+                       if gt is None else gt.to(t.dtype))
+        return (*out, None, None, None, None)
+
+
+def split_scan(fwd: str, bwd: str):
+    """``scan_op`` on ``_SplitScan`` with the forward ``fwd`` and the
+    backward ``bwd``."""
+    def op(r, k, v, log_w, u=None, state0=None, *, chunk: int = 64,
+           post_update: bool = False):
+        return _SplitScan.apply(r, k, v, log_w, u, state0, chunk,
+                                post_update, fwd, bwd)
+    return op
+
+
+def noisy_plain(seed: int, rel: float = 2.0 ** -24):
+    """``scan_op`` on ``linear_scan_ref`` with o multiplied by (1 + rel
+    xi), xi standard normal drawn from ``seed`` and the call's inputs (so a
+    rematerialised forward draws the same): the float32 plain route moved
+    by noise of float32's unit roundoff and nothing else."""
+    from repro_torch.kernels.linear_scan import linear_scan_ref
+
+    def op(r, k, v, log_w, u=None, state0=None, *, chunk: int = 64,
+           post_update: bool = False):
+        o, s = linear_scan_ref(r, k, v, log_w, u, state0, chunk=chunk,
+                               post_update=post_update)
+        key = int(float(r.detach().double().abs().sum()) * 1e3) % 2 ** 31
+        gen = torch.Generator(device=o.device).manual_seed(seed + key)
+        xi = torch.randn(o.shape, generator=gen, device=o.device,
+                         dtype=o.dtype)
+        return o * (1 + rel * xi), s
+    return op
+
+
+def phase_scan_in_model(cfg, params, device) -> None:
+    """The scan's forward on the inputs each layer of ``cfg`` gives it
+    (captured on the float32 plain route at ``TRAIN_SHAPE``): the kernel's
+    o and ``linear_scan_ref``'s against the float64 scan's, rel L2, and
+    after the time mix's per-head norm (o rsqrt(mean o^2 + 1e-6)), rel L2
+    and the largest error of a row, by layer."""
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import registry
+    B, S = TRAIN_SHAPE
+    batch = llm_batch(cfg, device, B, S, seed=3)
+    wrapper, seen = scan_ops.scan_op, []
+
+    def capture(r, k, v, log_w, u=None, state0=None, *, chunk=64,
+                post_update=False):
+        seen.append((r, k, v, log_w, u, state0, chunk, post_update))
+        return linear_scan_ref(r, k, v, log_w, u, state0, chunk=chunk,
+                               post_update=post_update)
+    scan_ops.scan_op = capture
+    try:
+        with torch.no_grad():
+            registry.loss_fn(params, batch, cfg)
+    finally:
+        scan_ops.scan_op = wrapper
+
+    def normed(o):
+        o = o.double()
+        return o * torch.rsqrt((o * o).mean(-1, keepdim=True) + 1e-6)
+
+    rows = []
+    with torch.no_grad():
+        for r, k, v, lw, u, s0, c, post in seen:
+            o64 = scan_f64_op(r, k, v, lw, u, s0, chunk=c,
+                              post_update=post)[0].double()
+            ok = linear_scan(r, k, v, lw, u, s0, chunk=c, post_update=post)[0]
+            op = linear_scan_ref(r, k, v, lw, u, s0, chunk=c,
+                                 post_update=post)[0]
+            n64 = normed(o64)
+            row = []
+            for o in (ok, op):
+                d = (normed(o) - n64).norm(dim=-1) / o.shape[-1] ** 0.5
+                row += [rel_l2(o, o64), rel_l2(normed(o), n64),
+                        float(d.max())]
+            rows.append(row)
+    del seen
+    log(f"[scan-in-model] {cfg.name} float32 B={B} S={S}: the scan's o on "
+        f"each layer's own inputs against the float64 scan's, kernel / "
+        f"plain: rel L2; after the per-head norm rel L2; its worst row's RMS "
+        f"error (limit on each: max(1e-6, 2 x plain))")
+    for i, x in enumerate(rows):
+        log(f"[scan-in-model]   layer {i}: {x[0]:.3g} / {x[3]:.3g}; "
+            f"{x[1]:.3g} / {x[4]:.3g}; {x[2]:.3g} / {x[5]:.3g}")
+    check(len(rows) == cfg.n_layers and all(
+        x[j] <= max(1e-6, 2 * x[j + 3]) for x in rows for j in range(3)),
+        "the scan kernel's forward is further from the float64 scan than "
+        "linear_scan_ref's on a layer's own inputs")
+
+
+def phase_train_witness(cfg, device, cases: dict) -> None:
+    """rwkv6-1.6b in float32 at full width and depth, for each case
+    (label -> a function giving float32 params that require grad): first
+    ``phase_scan_in_model`` (the forward kernel's accuracy on each layer's
+    own inputs), then one step's loss and gradients (``registry.loss_fn``,
+    ``torch.autograd.grad``) at ``TRAIN_SHAPE`` on eight routes of
+    ``scan_op``: the kernels; ``linear_scan_ref`` under autograd (the
+    float32 plain route); the witness, ``scan_f64_op`` (the scan alone in
+    float64); three with one half swapped (``split_scan``): the forward
+    kernel with ``linear_scan_bwd_ref`` or with the float64 backward, the
+    float64 forward with ``linear_scan_bwd_ref``; and the plain route with
+    o moved by noise of float32's unit roundoff, twice (``noisy_plain``).
+    Held: the decay leaves' gradients are exactly 0 on every route (every
+    log_w lies below the -60/c clamp at these weights); the loss within
+    1e-4 of the plain route's and of the witness's; the backward kernel,
+    on the kernel's forward, within 1e-3 of ``linear_scan_bwd_ref`` and of
+    the float64 backward in every leaf (the loss within 1e-6); the whole
+    route, each leaf within max(1e-3, 2 x the plain routes' spread) of the
+    witness, the spread being the largest rel L2 to the witness of the
+    plain route and of its two noisy copies, and the global norm the same
+    way.  Printed: each leaf's rel L2 of the kernel route to the plain
+    route, and by route the grad_norm and the largest leaf rel L2 to the
+    witness, to the kernel route and to the plain route."""
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import global_norm
+    B, S = TRAIN_SHAPE
+    batch = llm_batch(cfg, device, B, S, seed=3)
+    wrapper = scan_ops.scan_op
+    noisy = ("plain + noise 1", "plain + noise 2")
+    routes = {"witness": scan_f64_op, "kernel": linear_scan,
+              "plain": linear_scan_ref,
+              "kernel fwd + plain bwd": split_scan("kernel", "ref"),
+              "kernel fwd + f64 bwd": split_scan("kernel", "f64"),
+              "f64 fwd + plain bwd": split_scan("f64", "ref"),
+              noisy[0]: noisy_plain(1), noisy[1]: noisy_plain(2)}
+    kept = ("witness", "kernel", "plain")
+    fwd = {"linear_scan": 2 * cfg.n_layers}
+    want = {"kernel": {**fwd, "linear_scan_bwd": cfg.n_layers},
+            "kernel fwd + plain bwd": fwd, "kernel fwd + f64 bwd": fwd}
+    for label, make in cases.items():
+        params = make()
+        phase_scan_in_model(cfg, params, device)
+        names = [n for n, _ in tree_items(params)]
+        flat = [p for _, p in tree_items(params)]
+        grads, loss, norm, moved, zero, to = {}, {}, {}, {}, {}, {}
+        for route, op in routes.items():
+            scan_ops.scan_op = op
+            before = launch_counts()
+            try:
+                lo = registry.loss_fn(params, batch, cfg)
+                g = torch.autograd.grad(lo, flat)
+            finally:
+                scan_ops.scan_op = wrapper
+            after = launch_counts()
+            moved[route] = {n: after[n] - before[n] for n in before
+                            if after[n] != before[n]}
+            loss[route], norm[route] = float(lo.detach()), float(global_norm(g))
+            zero[route] = {n: int(torch.count_nonzero(a))
+                           for n, a in zip(names, g) if n in DECAY_LEAVES}
+            to[route] = {ref: {n: rel_l2(a, b) for n, a, b in
+                               zip(names, g, grads[ref])
+                               if n not in DECAY_LEAVES}
+                         for ref in kept if ref in grads}
+            if route in kept:
+                grads[route] = g
+            del lo, g
+        check(all(moved[r] == want.get(r, {}) for r in routes),
+              f"launches by route {moved}, not {want}")
+        check(all(v == 0 for z in zero.values() for v in z.values()),
+              f"a decay leaf's gradient is not 0: nonzero counts {zero}")
+
+        def worst(route: str, ref: str) -> str:
+            d = to[route].get(ref) or to[ref][route]
+            return f"{max(d.values()):.3g}"
+        kw, kp = to["kernel"]["witness"], to["plain"]["kernel"]
+        spread = {n: max(to[r]["witness"][n] for r in ("plain", *noisy))
+                  for n in kw}
+        nerr = {r: abs(norm[r] - norm["witness"]) / norm["witness"]
+                for r in routes}
+        log(f"[train-witness] {cfg.name} float32, {label}, B={B} S={S}: loss "
+            f"kernel {loss['kernel']:.8g}, plain {loss['plain']:.8g}, "
+            f"witness (the scan in float64) {loss['witness']:.8g}; decay "
+            f"leaves' gradients exactly 0 on every route "
+            f"({', '.join(DECAY_LEAVES)})")
+        log("[train-witness]   by route: grad_norm; largest leaf rel L2 to "
+            "the witness, the kernel route, the plain route: " + "; ".join(
+                f"{r} {norm[r]:.8g}; " + ", ".join(
+                    "0" if r == ref else worst(r, ref) for ref in kept)
+                for r in routes))
+        log("[train-witness]   rel L2 by leaf, kernel to the witness (limit "
+            "max(1e-3, 2 x the plain routes' spread)) / the spread, kernel "
+            "to plain: " + ", ".join(f"{n} {kw[n]:.3g} / {spread[n]:.3g}, "
+                                    f"{kp[n]:.3g}" for n in kw))
+        halves = {r: to[r]["kernel"] for r in ("kernel fwd + plain bwd",
+                                               "kernel fwd + f64 bwd")}
+        log("[train-witness]   the forward kernel on both routes, the "
+            "backward kernel against linear_scan_bwd_ref / the float64 "
+            "backward, rel L2 by leaf (limit 1e-3): " + ", ".join(
+                f"{n} {halves['kernel fwd + plain bwd'][n]:.3g} / "
+                f"{halves['kernel fwd + f64 bwd'][n]:.3g}" for n in kw))
+        check(all(abs(loss["kernel"] - loss[r]) <= 1e-4 * abs(loss[r])
+                  for r in ("plain", "witness")) and
+              nerr["kernel"] <= max(1e-2, 2 * max(nerr[r] for r in
+                                                  ("plain", *noisy))) and
+              all(kw[n] <= max(1e-3, 2 * spread[n]) for n in kw),
+              f"{label}: the kernel route's float32 training gradients are "
+              "further from the witness than the plain routes' spread allows")
+        check(all(abs(loss["kernel"] - loss[r]) <= 1e-6 * abs(loss[r]) and
+                  max(h.values()) <= 1e-3 for r, h in halves.items()),
+              f"{label}: the linear_scan backward kernel's training gradients "
+              "disagree with linear_scan_bwd_ref's or the float64 "
+              "backward's on the same forward")
+        del params, flat, grads
+        torch.cuda.empty_cache()
+
+
 def f32_params(tree) -> dict:
     """A float32 copy of a model's params: leaves that require grad."""
     return {k: f32_params(v) if isinstance(v, dict) else
             v.detach().float().requires_grad_(True) for k, v in tree.items()}
 
 
+def fresh_f32_params(cfg, seed: int, device) -> dict:
+    """``cfg``'s params drawn in float32 from ``seed``, requiring grad."""
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params
+    return f32_params(init_params(
+        registry.specs(cfg.replace(dtype=torch.float32)), seed, device))
+
+
 def phase_train_small(device) -> None:
-    """(d) a checkpoint round trip of reduced olmo-1b's train state on the
-    card (async save, restore onto the card, bit-equal); (e) reduced
-    rwkv6-1.6b training on the card raises the documented error (no
-    ``linear_scan`` backward kernel: ROADMAP queue 2)."""
+    """A checkpoint round trip of reduced olmo-1b's train state on the card
+    (async save, restore onto the card, bit-equal)."""
     import tempfile
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import REGISTRY
-    from repro_torch.training import (TrainConfig, init_train_state,
-                                      make_train_step)
+    from repro_torch.training import TrainConfig, init_train_state
     from repro_torch.tree import leaves
     state = init_train_state(REGISTRY["olmo-1b"].reduced(), TrainConfig(), 0,
                              device)
@@ -2168,24 +2816,36 @@ def phase_train_small(device) -> None:
         f"{manifest['step']}: bit-equal {same}")
     check(same and manifest["step"] == 7, "the checkpoint round trip on "
           "the card is not bit-equal")
-    cfg = REGISTRY["rwkv6-1.6b"].reduced()
-    tc = TrainConfig()
-    params, opt = init_train_state(cfg, tc, 0, device)
-    toks = np.zeros((2, 32), np.int32)
-    try:
-        make_train_step(cfg, tc, device=device)(
-            params, opt, {"tokens": toks, "labels": toks})
-        raised = ""
-    except RuntimeError as e:
-        raised = str(e)
-    log(f"[train-rwkv6] reduced rwkv6-1.6b train step on the card raises: "
-        f"{raised!r}")
-    check("queue 2" in raised, "rwkv6 training on the card did not raise "
-          "the documented error")
 
 
-def phase_training(device, card: str, name: str) -> dict:
-    """(a)-(e) of the training slice; returns the backward's record."""
+def phase_train_cli() -> None:
+    """``python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 2`` on
+    the card (reduced, as the CLI always is; the linear_scan kernels
+    forward and backward), checkpoints into a temporary directory: exit
+    code 0 and its report."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "rwkv6-1.6b", "--steps", "2", "--ckpt-dir", d], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
+    log(f"[train-cli] rwkv6-1.6b (reduced) 2 steps on the card: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+        + " | ".join(tail))
+    check(proc.returncode == 0 and "done: 2 steps" in proc.stdout,
+          "the train CLI failed on rwkv6-1.6b")
+
+
+def phase_training(device, card: str, name: str) -> tuple[dict, int]:
+    """The training slices: the flash backward, olmo-1b's train steps and
+    their routes, a checkpoint round trip; then rwkv6-1.6b's train steps
+    (the linear_scan backward) and their routes, and the train CLI on
+    rwkv6.  Returns the flash backward's record and the linear_scan
+    backward's launches in rwkv6's train steps."""
+    from repro_torch.configs import REGISTRY
     t0 = time.perf_counter()
     bwd_abs = phase_flash_bwd_vs_plain(device)
     cfg, params, bwd_launches, fwd_launches = phase_train(device, card)
@@ -2201,10 +2861,25 @@ def phase_training(device, card: str, name: str) -> dict:
     torch.cuda.empty_cache()
     phase_train_small(device)
     record = flash_bwd_record(device, bwd_launches, bwd_abs, name)
-    log(f"[train] phase {time.perf_counter() - t0:.1f} s; flash_attention "
+    log(f"[train] olmo-1b {time.perf_counter() - t0:.1f} s; flash_attention "
         f"launches in the train steps: {fwd_launches} forward, "
         f"{bwd_launches} backward")
-    return record
+    t1 = time.perf_counter()
+    cfg, params, scan_bwd, scan_fwd = phase_train(
+        device, card, REGISTRY["rwkv6-1.6b"])
+    phase_train_plain_route(cfg, params, device, loss_tol=1e-3,
+                            norm_tol=1e-2)
+    cases = {"the trained params": lambda: f32_params(params)}
+    cases.update({f"weights of seed {i}": functools.partial(
+        fresh_f32_params, cfg, i, device) for i in (0, 1)})
+    phase_train_witness(cfg.replace(dtype=torch.float32), device, cases)
+    del params, cases
+    torch.cuda.empty_cache()
+    phase_train_cli()
+    log(f"[train] rwkv6-1.6b {time.perf_counter() - t1:.1f} s; linear_scan "
+        f"launches in the train steps: {scan_fwd} forward, {scan_bwd} "
+        f"backward; the training phase {time.perf_counter() - t0:.1f} s")
+    return record, scan_bwd
 
 
 def main() -> int:
@@ -2312,8 +2987,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(flash_record(device, fwd_launches, flash_abs, name))
     log(f"[llama] {time.perf_counter() - t0:.1f} s")
+    records.append(phase_phi3(device, name))
+    log(f"[phi3] {time.perf_counter() - t0:.1f} s")
 
     scan_abs = phase_scan_vs_plain(device)
+    scan_bwd_abs = phase_scan_bwd_vs_plain(device)
     cfg = REGISTRY["rwkv6-1.6b"]  # full width and depth
     t1 = time.perf_counter()
     params = init_params(registry.specs(cfg), 0, device)
@@ -2364,7 +3042,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     records.append(scan_record(device, scan_launches, scan_abs, name))
-    records.append(phase_training(device, card, name))
+    flash_bwd, scan_bwd_launches = phase_training(device, card, name)
+    records.append(flash_bwd)
+    records.append(scan_bwd_record(device, scan_bwd_launches, scan_bwd_abs,
+                                   name))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

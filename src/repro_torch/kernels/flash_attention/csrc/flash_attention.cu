@@ -76,9 +76,13 @@
 //    and the warpgroups themselves wait on them (no producer warp, no
 //    setmaxnreg), and in a warpgroup the softmax waits for S and the next
 //    S for P.V (no ping-pong between warpgroups); those are later work.
-// 2. float32 (any D of 16, 32, 64, 128) and bfloat16 at D = 16 or 32
-//    (only the .reduced() configs): flash_kernel, float32 FMAs on the CUDA
-//    cores.  q, k and v are widened to float32 in shared memory and both
+// 2. float32 (any D of 16, 32, 64, 96, 128) and bfloat16 at D = 16, 32
+//    (only the .reduced() configs) or 96 (phi-3-vision-4.2b: 3072 / 32;
+//    a wgmma route at D = 96 is still to come): flash_kernel, float32 FMAs
+//    on the CUDA cores.  D need not be a power of two, only a multiple of
+//    16 (each thread's D / 16 accumulator columns; at D = 96 and BQ = 128
+//    the tiles take 132,352 bytes of shared memory).  q, k and v are
+//    widened to float32 in shared memory and both
 //    products are float32 multiply-adds: no TF32, no bf16 tensor-core
 //    product, so float32 meets the reference's 2e-6.  One block of 256
 //    threads owns one (q tile, head, batch) and loops over the K/V tiles
@@ -96,7 +100,7 @@
 namespace {
 
 // ---------------------------------------------------------------------
-// 2. the SIMT kernel (float32; bf16 at D = 16, 32)
+// 2. the SIMT kernel (float32; bf16 at D = 16, 32, 96)
 // ---------------------------------------------------------------------
 
 
@@ -800,6 +804,7 @@ int simt_by_head_dim(int D, const Args& a) {
   switch (D) {
     case 16: return launch<T, 16, BQ, BK>(a);
     case 32: return launch<T, 32, BQ, BK>(a);
+    case 96: return launch<T, 96, BQ, BK>(a);  // 3 x 32: no wgmma route yet
   }
   if constexpr (sizeof(T) == 4) {  // float32 only: bf16 takes the wgmma
     switch (D) {

@@ -19,8 +19,9 @@
 //   1. bfloat16 at D = 64 or 128 (every full-width model of the repo):
 //      flash_bwd_wgmma_kernel, on the tensor cores; Sk a multiple of 128,
 //      Sq of 64;
-//   2. float32 (D = 16, 32, 64, 128) and bfloat16 at D = 16 or 32 (only
-//      the .reduced() configs): the float32 SIMT flash_bwd; Sq and Sk
+//   2. float32 (D = 16, 32, 64, 96, 128) and bfloat16 at D = 16, 32
+//      (only the .reduced() configs) or 96 (phi-3-vision-4.2b; no wgmma
+//      route at D = 96 yet): the float32 SIMT flash_bwd; Sq and Sk
 //      multiples of 64.
 // There is no fallback from one to the other.
 //
@@ -137,20 +138,34 @@ __device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
   return dot2(a.x, b.x) + dot2(a.y, b.y) + dot2(a.z, b.z) + dot2(a.w, b.w);
 }
 
-// one row of D elements per D * sizeof(T) / 16 lanes (2 to 32, dividing
-// the warp), 16 bytes a lane; row r of the (B, Sq, Hq) rows goes to
-// delta[b][h][q]
+// lanes a row: D * sizeof(T) / 16 of them hold 16 bytes each; rounded up
+// to a power of two (2 to 32, dividing the warp) so that the shuffles
+// reduce within a row: at D = 96 a row is 24 float32 or 12 bf16 parts
+// over 32 or 16 lanes, the lanes past its parts adding 0
+template <typename T, int D>
+__host__ __device__ constexpr int delta_lanes() {
+  constexpr int parts = D * (int)sizeof(T) / 16;
+  static_assert(D * sizeof(T) % 16 == 0 && parts <= 32,
+                "a row is whole 16-byte parts, at most one warp's");
+  int lanes = 1;
+  while (lanes < parts) lanes *= 2;
+  return lanes;
+}
+
+// one row of D elements per delta_lanes<T, D>() lanes, 16 bytes a lane
+// with data; row r of the (B, Sq, Hq) rows goes to delta[b][h][q]
 template <typename T, int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
     flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
                     float* __restrict__ delta, int64_t rows, int Sq, int Hq) {
   constexpr int V = 16 / sizeof(T);  // elements in 16 bytes
-  constexpr int TPR = D / V;         // lanes a row
+  constexpr int PARTS = D / V;       // lanes with data a row
+  constexpr int TPR = delta_lanes<T, D>();
   const int64_t t = (int64_t)blockIdx.x * DELTA_THREADS + threadIdx.x;
   const int64_t row = t / TPR;
   const int part = (int)(t % TPR);
   float acc = 0.0f;
-  if (row < rows) {
+  if (row < rows && part < PARTS) {
     const int64_t off = row * D + part * V;
     acc = dot16(*reinterpret_cast<const uint4*>(o + off),
                 *reinterpret_cast<const uint4*>(dout + off), T{});
@@ -170,7 +185,7 @@ __global__ void __launch_bounds__(DELTA_THREADS)
 template <typename T, int D>
 int launch_delta(const void* o, const void* dout, float* delta, int B,
                  int Sq, int Hq, cudaStream_t stream) {
-  constexpr int TPR = D * (int)sizeof(T) / 16;
+  constexpr int TPR = delta_lanes<T, D>();
   const int64_t rows = (int64_t)B * Sq * Hq;
   const int64_t threads = rows * TPR;
   const unsigned blocks =
@@ -181,7 +196,7 @@ int launch_delta(const void* o, const void* dout, float* delta, int B,
 }
 
 // ---------------------------------------------------------------------
-// 2. the SIMT kernel (float32; bf16 at D = 16, 32)
+// 2. the SIMT kernel (float32; bf16 at D = 16, 32, 96)
 // ---------------------------------------------------------------------
 
 constexpr int TX = 16;  // threads along a row of a tile
@@ -908,6 +923,7 @@ int simt_by_head_dim(int D, const Args& a) {
   switch (D) {
     case 16: return launch_simt<T, 16>(a);
     case 32: return launch_simt<T, 32>(a);
+    case 96: return launch_simt<T, 96>(a);  // 3 x 32: no wgmma route yet
   }
   if constexpr (sizeof(T) == 4) {  // float32 only: bf16 takes the wgmma
     switch (D) {

@@ -8,8 +8,9 @@ first use into ``build/repro_torch/`` and bound with ``ctypes``; the source
 note says what bounds it.  It holds two kernels, and (dtype, D) alone picks
 one: bfloat16 at D = 64 or 128 runs on the tensor cores (``wgmma`` fed by
 TMA, 128-row q tiles, K/V tiles of ``WGMMA_TILES``); float32, and bfloat16
-at D = 16 or 32 (only the ``.reduced()`` configs), run the float32 SIMT
-kernel (``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
+at D = 16 or 32 (only the ``.reduced()`` configs) or 96 (phi-3-vision-4.2b,
+which has no wgmma route yet), run the float32 SIMT kernel
+(``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
 ``flash_attention.launches``; CPU tensors take the plain version,
 ``attention_ref``.  Anything the kernel does not take raises, on either
 device: there is no fallback from the card.
@@ -44,7 +45,7 @@ SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SRC = SRC.with_name("flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these runs the wgmma kernel
 # (blk_q, blk_k) each kernel is compiled for; the first is the default
 # (for the wgmma kernel, BK = 128 measured faster than 64 on the H100: the
@@ -98,8 +99,8 @@ def _check(q, k, v, blk_q: int | None,
     """Raises on what the kernel does not take; returns the tile, the
     default of ``tiles(dtype, D)`` where ``blk_q`` or ``blk_k`` is None.
     The wgmma kernel (bfloat16 at D = 64, 128) also needs 16-byte aligned
-    CUDA tensors for its TMA loads; bfloat16 at D = 16, 32 stays on the
-    SIMT kernel."""
+    CUDA tensors for its TMA loads; bfloat16 at D = 16, 32, 96 stays on
+    the SIMT kernel."""
     if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes torch tensors")
     if not (q.device == k.device == v.device):
@@ -157,7 +158,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, blk_q: int | None = None,
                     blk_k: int | None = None) -> torch.Tensor:
     """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) with Hq % Hkv == 0 ->
-    (B, Sq, Hq, D) in q's dtype.  float32 or bfloat16, D in 16/32/64/128,
+    (B, Sq, Hq, D) in q's dtype.  float32 or bfloat16, D in ``HEAD_DIMS``,
     Sq and Sk multiples of the (blk_q, blk_k) tile, one of
     ``tiles(dtype, D)`` (its first by default), contiguous tensors on one
     device.  Under grad, with an input that requires it, the call is
@@ -277,7 +278,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sk, Hkv, D), o the forward's output, do the gradient of the loss
     with respect to it and lse the forward's row log-sum-exp (float32,
     (B, Hq, Sq)) -> (dq, dk, dv) in the inputs' dtypes.  float32 or
-    bfloat16, D in 16/32/64/128, Sq and Sk multiples of ``bwd_tile(dtype,
+    bfloat16, D in ``HEAD_DIMS``, Sq and Sk multiples of ``bwd_tile(dtype,
     D)``.  CUDA tensors launch the kernels (delta, then the gradients;
     counted once in ``flash_attention.bwd_launches``) and need lse; CPU
     tensors take ``attention_bwd_ref``, which computes lse where it is

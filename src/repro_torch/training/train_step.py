@@ -4,7 +4,7 @@ AdamW, with microbatch gradient accumulation, as the JAX package's
 
 Params are leaf tensors that require grad; the gradient is
 ``torch.autograd.grad`` of ``registry.loss_fn`` (on the card, the
-attention's backward is the hand-written flash backward kernel).
+attention's and the linear scan's backwards are hand-written kernels).
 Microbatches are a Python loop that sums float32 gradients, where the
 reference scans.  The update is in place (``optim.adamw``).  The
 abstract (shape-only) train state waits for the mesh layer.

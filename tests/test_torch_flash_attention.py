@@ -92,9 +92,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         flash_attention(q.numpy(), k, v)
     with pytest.raises(ValueError, match="head dim"):
-        pad = torch.zeros(1, 128, 4, 32)
+        pad = torch.zeros(1, 128, 4, 16)
         flash_attention(*(torch.cat([t, pad[:, :, :t.shape[2]]], -1)
-                          for t in (q, k, v)))           # D = 96
+                          for t in (q, k, v)))           # D = 80
     with pytest.raises(ValueError, match="multiple of"):
         flash_attention(q, k[:, :, :1].expand(1, 128, 3, 64).contiguous(),
                         v[:, :, :1].expand(1, 128, 3, 64).contiguous())
@@ -202,7 +202,8 @@ def test_bf16_p_arithmetic_independent_of_blk_k(B, Sq, Sk, Hq, Hkv, D,
     (torch.bfloat16, 128, WGMMA_TILES), (torch.bfloat16, 64, WGMMA_TILES),
     (torch.bfloat16, 32, SIMT_TILES), (torch.bfloat16, 16, SIMT_TILES),
     (torch.float32, 128, SIMT_TILES), (torch.float32, 64, SIMT_TILES),
-    (torch.float32, 16, SIMT_TILES)])
+    (torch.float32, 16, SIMT_TILES), (torch.bfloat16, 96, SIMT_TILES),
+    (torch.float32, 96, SIMT_TILES)])
 def test_tiles_follow_dtype_and_head_dim(dtype, D, want):
     """(dtype, D) alone picks the kernel: bf16 at D = 64, 128 the wgmma
     kernel (128-row q tiles), everything else the SIMT kernel."""
@@ -212,7 +213,7 @@ def test_tiles_follow_dtype_and_head_dim(dtype, D, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
 def test_wrapper_takes_the_tiles_of_its_kernel(dtype, D):
     _, (q, k, v) = _both(_inputs(1, 256, 256, 4, 2, D, seed=2), dtype)
     want = attention_ref(q, k, v)
@@ -231,3 +232,18 @@ def test_wrapper_takes_the_tiles_of_its_kernel(dtype, D):
     if allowed is WGMMA_TILES:  # 128-row q tiles: Sq = 64 is refused
         with pytest.raises(ValueError, match="multiples of the tiles"):
             flash_attention(q[:, :64].contiguous(), k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_at_head_dim_96_matches_pallas_interpret(dtype):
+    """phi-3-vision-4.2b's head dim (3072 / 32 = 96, not a power of two):
+    the wrapper takes it, on its SIMT tiles, and matches the Pallas kernel
+    in interpret mode, which takes any D."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(1, 128, 128, 4, 2, 96,
+                                               seed=3), dtype)
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    kernel = j_flash(jq, jk, jv, causal=True, blk_q=128, blk_k=128,
+                     interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), atol=TOL[dtype],
+                               rtol=TOL[dtype])

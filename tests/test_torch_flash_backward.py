@@ -230,3 +230,25 @@ def test_bwd_checks_its_lse():
     got = flash_attention_bwd(q, k, v, o, do, lse=lse)
     for g, w in zip(got, attention_bwd_ref(q, k, v, o, do)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_dim_96_matches_jax_gradient(causal):
+    """phi-3-vision-4.2b's head dim (96): ``flash_attention`` under grad on
+    CPU tensors (``_FlashAttention``, then ``flash_attention_bwd``) and
+    ``flash_attention_bwd`` itself against ``jax.vjp`` of the JAX
+    package's attention_ref, GQA 2:1."""
+    q, k, v, do = _inputs(1, 128, 128, 4, 2, 96, seed=7)
+    o, vjp = jax.vjp(lambda a, b, c: j_ref(a, b, c, causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    direct = flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(),
+                                 out.detach(), torch.from_numpy(do),
+                                 causal=causal)
+    for grads in (got, direct):
+        for g, w in zip(grads, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       atol=JAX_TOL, rtol=JAX_TOL)

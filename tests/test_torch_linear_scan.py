@@ -247,8 +247,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         linear_scan(r, k, v, lw, u, s0[..., :8])
     with pytest.raises(ValueError, match="B, T, H, K"):
         linear_scan(r, k[:, :16], v, lw)
-    # on CPU tensors the plain version is ordinary autograd (the card has
-    # no backward kernel and refuses: tests/test_torch_cuda.py)
+    # under grad, on CPU tensors, _LinearScan: the plain forward, then
+    # linear_scan_bwd_ref (tests/test_torch_linear_scan_bwd.py)
     rg = r.clone().requires_grad_(True)
     o, _ = linear_scan(rg, k, v, lw)
     assert o.requires_grad and torch.autograd.grad(o.sum(), rg)[0].shape \
