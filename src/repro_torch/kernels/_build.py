@@ -13,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -70,3 +71,24 @@ def load(src: Path, flags: tuple[str, ...]) -> ctypes.CDLL:
     """The built library, loaded once per process; the caller declares
     ``argtypes`` and ``restype`` of the functions it calls."""
     return ctypes.CDLL(str(build(src, flags)[0]))
+
+
+def ptxas_table(report: str) -> list[tuple[str, int, int, int]]:
+    """(mangled entry function, registers, spill store bytes, spill load
+    bytes) of each kernel in the ``-Xptxas -v`` report ``build`` returns
+    (empty when the library was not rebuilt)."""
+    out, current, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            out.append((current, int(m.group(1)), *spills))
+            current = None
+    return out

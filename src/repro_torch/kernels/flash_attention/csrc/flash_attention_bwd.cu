@@ -20,8 +20,9 @@
 //      flash_bwd_wgmma_kernel, on the tensor cores; Sk a multiple of 128,
 //      Sq of 64;
 //   2. float32 (D = 16, 32, 64, 96, 128) and bfloat16 at D = 16, 32
-//      (only the .reduced() configs) or 96 (phi-3-vision-4.2b; no wgmma
-//      route at D = 96 yet): the float32 SIMT flash_bwd; Sq and Sk
+//      (only the .reduced() configs) or 96 (phi-3-vision-4.2b, whose
+//      forward runs on the wgmma kernel; the backward has no wgmma route at
+//      D = 96 yet): the float32 SIMT flash_bwd; Sq and Sk
 //      multiples of 64.
 // There is no fallback from one to the other.
 //
@@ -923,7 +924,7 @@ int simt_by_head_dim(int D, const Args& a) {
   switch (D) {
     case 16: return launch_simt<T, 16>(a);
     case 32: return launch_simt<T, 32>(a);
-    case 96: return launch_simt<T, 96>(a);  // 3 x 32: no wgmma route yet
+    case 96: return launch_simt<T, 96>(a);  // no wgmma backward at 96 yet
   }
   if constexpr (sizeof(T) == 4) {  // float32 only: bf16 takes the wgmma
     switch (D) {

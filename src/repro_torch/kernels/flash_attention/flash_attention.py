@@ -6,11 +6,11 @@ hand-written CUDA kernel for Hopper.
 (``csrc/flash_attention.cu``) is compiled with ``nvcc`` for ``sm_90a`` at
 first use into ``build/repro_torch/`` and bound with ``ctypes``; the source
 note says what bounds it.  It holds two kernels, and (dtype, D) alone picks
-one: bfloat16 at D = 64 or 128 runs on the tensor cores (``wgmma`` fed by
-TMA, 128-row q tiles, K/V tiles of ``WGMMA_TILES``); float32, and bfloat16
-at D = 16 or 32 (only the ``.reduced()`` configs) or 96 (phi-3-vision-4.2b,
-which has no wgmma route yet), run the float32 SIMT kernel
-(``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
+one: bfloat16 at D = 64, 96 (phi-3-vision-4.2b) or 128 runs on the tensor
+cores (``wgmma`` fed by TMA, 128-row q tiles, K/V tiles of
+``WGMMA_TILES``, at D = 96 of ``WGMMA_TILES_96``); float32, and bfloat16
+at D = 16 or 32 (only the ``.reduced()`` configs), run the float32 SIMT
+kernel (``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
 ``flash_attention.launches``; CPU tensors take the plain version,
 ``attention_ref``.  Anything the kernel does not take raises, on either
 device: there is no fallback from the card.
@@ -20,9 +20,10 @@ autograd function: its forward also has the kernel write each row's
 log-sum-exp (``lse``, float32 (B, Hq, Sq)) and saves it beside q, k, v and
 o; its backward is ``flash_attention_bwd``: on CUDA tensors the
 hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a library of
-their own, built the same way; (dtype, D) picks the kernel as for the
-forward: bfloat16 at D = 64 or 128 on the tensor cores, the rest the
-float32 SIMT one), counted in ``flash_attention.bwd_launches``; on CPU
+their own, built the same way; (dtype, D) picks the kernel: bfloat16 at
+D = 64 or 128 on the tensor cores, the rest the float32 SIMT one, bfloat16
+at D = 96 included, on the lse of the wgmma forward), counted in
+``flash_attention.bwd_launches``; on CPU
 tensors ``attention_bwd_ref``.  The JAX package has no backward kernel:
 XLA differentiates through its forward.  The backward is not
 differentiable again.
@@ -46,15 +47,17 @@ BWD_SRC = SRC.with_name("flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64, 96, 128)
-WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these runs the wgmma kernel
+WGMMA_HEAD_DIMS = (64, 128, 96)  # bfloat16 at these runs the wgmma kernel
+BWD_WGMMA_HEAD_DIMS = (64, 128)  # and the wgmma backward at these
 # (blk_q, blk_k) each kernel is compiled for; the first is the default
-# (for the wgmma kernel, BK = 128 measured faster than 64 on the H100: the
-# PERF.md kernel table)
+# (for the wgmma kernel the faster on the H100, the PERF.md kernel table:
+# BK = 128 at D = 64 and 128, BK = 64 at D = 96)
 SIMT_TILES = ((64, 64), (128, 64))
 WGMMA_TILES = ((128, 128), (128, 64))
+WGMMA_TILES_96 = ((128, 64), (128, 128))
 DTYPES = (torch.float32, torch.bfloat16)
 # the backward's (q, k) tiles: Sq and Sk must be multiples of them; bf16 at
-# WGMMA_HEAD_DIMS runs the wgmma kernel (64 q rows, 128 keys a block)
+# BWD_WGMMA_HEAD_DIMS runs the wgmma kernel (64 q rows, 128 keys a block)
 BWD_SIMT_TILE = (64, 64)
 BWD_WGMMA_TILE = (64, 128)
 
@@ -63,13 +66,13 @@ def tiles(dtype: torch.dtype, D: int) -> tuple[tuple[int, int], ...]:
     """The tiles of the kernel that (dtype, D) runs; the first is the
     default."""
     if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
-        return WGMMA_TILES
+        return WGMMA_TILES_96 if D == 96 else WGMMA_TILES
     return SIMT_TILES
 
 
 def bwd_tile(dtype: torch.dtype, D: int) -> tuple[int, int]:
     """The (q, k) tile of the backward kernel that (dtype, D) runs."""
-    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and D in BWD_WGMMA_HEAD_DIMS:
         return BWD_WGMMA_TILE
     return BWD_SIMT_TILE
 
@@ -81,7 +84,23 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.flash_wgmma_occupancy.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.flash_wgmma_occupancy.restype = ctypes.c_int
     return lib
+
+
+def wgmma_occupancy(D: int, blk_k: int) -> tuple[int, int]:
+    """(dynamic shared bytes, blocks an SM holds at once) of the wgmma
+    kernel at head dim ``D`` and K/V tile ``blk_k``, as the CUDA runtime
+    counts them on the current card (registers and shared memory)."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _library().flash_wgmma_occupancy(D, blk_k, ctypes.byref(smem),
+                                          ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention occupancy query at D={D}, "
+                           f"BK={blk_k}: {_launch_error(rc)}")
+    return smem.value, blocks.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,8 +117,8 @@ def _check(q, k, v, blk_q: int | None,
            blk_k: int | None) -> tuple[int, int]:
     """Raises on what the kernel does not take; returns the tile, the
     default of ``tiles(dtype, D)`` where ``blk_q`` or ``blk_k`` is None.
-    The wgmma kernel (bfloat16 at D = 64, 128) also needs 16-byte aligned
-    CUDA tensors for its TMA loads; bfloat16 at D = 16, 32, 96 stays on
+    The wgmma kernel (bfloat16 at D = 64, 96, 128) also needs 16-byte
+    aligned CUDA tensors for its TMA loads; bfloat16 at D = 16, 32 stays on
     the SIMT kernel."""
     if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes torch tensors")
@@ -135,7 +154,7 @@ def _check(q, k, v, blk_q: int | None,
                          f"multiples of the tiles ({blk_q}, {blk_k})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
-    if q.is_cuda and allowed is WGMMA_TILES and any(
+    if q.is_cuda and allowed is not SIMT_TILES and any(
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: the wgmma kernel's TMA loads "
                          "need 16-byte aligned tensors")

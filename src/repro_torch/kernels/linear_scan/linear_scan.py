@@ -48,8 +48,10 @@ MAX_CHUNK = 256   # longest chunk the kernel is written and tested for
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SRC, NVCC_FLAGS)
+def _library(src: Path = SRC) -> ctypes.CDLL:
+    """The forward's library (``src``: another copy of the source, e.g. an
+    ablation's variant), its functions declared."""
+    lib = _build.load(src, NVCC_FLAGS)
     args = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                           ctypes.c_void_p]
     lib.linear_scan_launch.argtypes = args
@@ -60,15 +62,32 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
-    lib = _build.load(BWD_SRC, NVCC_FLAGS)
+def _bwd_library(src: Path = BWD_SRC) -> ctypes.CDLL:
+    """The backward's library, as ``_library``."""
+    lib = _build.load(src, NVCC_FLAGS)
     args = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                            ctypes.c_void_p]
     lib.linear_scan_bwd_launch.argtypes = args
     lib.linear_scan_bwd_pass.argtypes = [ctypes.c_int] + args
-    for fn in (lib.linear_scan_bwd_launch, lib.linear_scan_bwd_pass):
+    lib.linear_scan_bwd_grad_occupancy.argtypes = [ctypes.c_int] + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    for fn in (lib.linear_scan_bwd_launch, lib.linear_scan_bwd_pass,
+               lib.linear_scan_bwd_grad_occupancy):
         fn.restype = ctypes.c_int
     return lib
+
+
+def bwd_grad_occupancy(dtype: torch.dtype) -> tuple[int, int]:
+    """(dynamic shared bytes, blocks an SM holds at once) of the
+    backward's gradient pass for ``dtype``'s instance, as the CUDA runtime
+    counts them on the current card (registers and shared memory)."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _bwd_library().linear_scan_bwd_grad_occupancy(
+        int(dtype == torch.bfloat16), ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"linear_scan_bwd occupancy query failed: CUDA "
+                           f"error {rc}")
+    return smem.value, blocks.value
 
 
 def _check(r, k, v, log_w, u, state0, chunk: int) -> None:

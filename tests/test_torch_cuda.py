@@ -21,7 +21,7 @@ from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention, flash_attention_with_lse)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    tiles)
+    tiles, wgmma_occupancy)
 from repro_torch.kernels.linear_scan import (  # noqa: E402
     linear_scan, linear_scan_bwd, linear_scan_bwd_ref, linear_scan_ref,
     linear_scan_with_states)
@@ -310,11 +310,17 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
 # (B, S, Hq, Hkv, D): ragged head counts (3 over 1, 6 over 2, 5 over 5, 9
 # over 3), every head dim, S = 64 and 192 on the SIMT forward (D = 32: the
 # wgmma forward's tiles are 128), several 64-row q tiles per 128-key tile
-# of the wgmma backward (S = 384, 256), and the two models' shapes at B = 1
+# of the wgmma backward (S = 384, 256), and the two models' shapes at B = 1.
+# D = 96 runs the SIMT backward on the wgmma forward's lse in bf16, whose
+# 128-row q tiles take S = 384 (three of them) and refuse 192; float32
+# keeps S = 192 as well.
 BWD_SHAPES = [(1, 128, 3, 1, 16), (2, 64, 6, 2, 32), (1, 192, 5, 5, 32),
               (2, 128, 6, 2, 64), (1, 256, 4, 2, 128), (1, 384, 6, 2, 64),
               (2, 256, 9, 3, 128), (1, 2048, 16, 16, 128),
-              (1, 2048, 32, 8, 128), (1, 192, 4, 2, 96)]
+              (1, 2048, 32, 8, 128), (1, 384, 4, 2, 96)]
+BWD_CASES = [(s, dt) for s in BWD_SHAPES
+             for dt in (torch.float32, torch.bfloat16)] + [
+    ((1, 192, 4, 2, 96), torch.float32)]
 # relative L2 error of dq, dk, dv against attention_bwd_ref on the same
 # inputs: float32 sums in another order (dq's atomics in a varying one);
 # bf16 rounds the three outputs to 8 mantissa bits
@@ -327,9 +333,8 @@ def _rel_l2(got, want) -> float:
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("shape,dtype", BWD_CASES,
+                         ids=[f"{s}-{str(d)[6:]}" for s, d in BWD_CASES])
 def test_flash_backward_kernel_matches_plain(cuda, no_tf32, shape, dtype,
                                              causal):
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
@@ -409,6 +414,49 @@ def test_flash_forward_writes_lse(cuda, no_tf32, shape, dtype):
         torch.testing.assert_close(lse, want, rtol=LSE_TOL, atol=LSE_TOL)
         assert torch.equal(o, flash_attention(q, k, v, causal=causal,
                                               blk_q=blk_q, blk_k=blk_k))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_flash_wgmma_forward_at_head_dim_96(cuda, no_tf32, causal):
+    """bf16 at D = 96 on the wgmma kernel (its second 64-column box half
+    outside the tensor: zeros on a load, clipped on a store) at both tiles,
+    GQA 6 over 2, Sq = 256 against Sk = 320 (a multiple of 64, not of 128:
+    BK = 128 refuses it and runs at Sk = 256): o within bf16's tolerance of
+    attention_ref, lse within LSE_TOL, one launch a call."""
+    q, k, v = _qkv(2, 256, 320, 6, 2, 96, torch.bfloat16, cuda, seed=9)
+    assert tiles(torch.bfloat16, 96) == ((128, 64), (128, 128))
+    with pytest.raises(ValueError, match="multiples of the tiles"):
+        flash_attention(q, k, v, causal=causal, blk_q=128, blk_k=128)
+    tol = FLASH_TOL[torch.bfloat16]
+    for blk_q, blk_k in tiles(torch.bfloat16, 96):
+        sk = 320 if 320 % blk_k == 0 else 256
+        kk, vv = k[:, :sk].contiguous(), v[:, :sk].contiguous()
+        want, want_lse = attention_ref(q, kk, vv, causal=causal,
+                                       return_lse=True)
+        before = flash_attention.launches
+        o, lse = flash_attention_with_lse(q, kk, vv, causal=causal,
+                                          blk_q=blk_q, blk_k=blk_k)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert o.shape == q.shape and bool(torch.isfinite(o).all())
+        torch.testing.assert_close(o.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 96, 128])
+def test_flash_wgmma_occupancy_is_counted(cuda, D):
+    """Every wgmma instance answers the occupancy query: the shared bytes
+    of its tiles (two q boxes and a two-stage K/V ring, 64-column boxes
+    rounded up, 1024 of alignment) and at least one block an SM; a tile
+    that is not compiled raises."""
+    dp = 64 * -(-D // 64)
+    for _, blk_k in tiles(torch.bfloat16, D):
+        smem, blocks = wgmma_occupancy(D, blk_k)
+        assert smem == 2 * 64 * dp * 2 + 4 * blk_k * dp * 2 + 1024
+        assert blocks >= 1
+    with pytest.raises(RuntimeError, match="no kernel compiled"):
+        wgmma_occupancy(D, 32)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
@@ -637,14 +685,18 @@ def test_rwkv_train_step_on_card_matches_cpu(cuda, no_tf32):
 
 
 # (B, T, H, K, V, post, use_u, chunk): rwkv6's form at the model's chunk,
-# T = c, c < 64 (odd), K < 64 with V > 64 (two V slices), post-update
-# (Mamba-2), a chunk of 48 with K = 48 and V = 80
+# T = c, c < 64 (odd), K < 64 with V > 64 (several V slices), post-update
+# (Mamba-2), a chunk of 48 with K = 48 and V = 80; K = 20, not a multiple
+# of the tensor-core fragments' 8 (zero-padded to 24), with V = 96 and with
+# V = 90 (not a multiple of 4: the slices load element by element)
 SCAN_BWD_SHAPES = [(1, 512, 2, 64, 64, False, True, 256),
                    (2, 64, 2, 16, 16, False, True, 64),
                    (2, 37, 2, 16, 24, False, True, 64),
                    (1, 512, 2, 32, 96, True, False, 256),
                    (2, 256, 3, 64, 64, True, False, 64),
-                   (2, 96, 2, 48, 80, False, True, 48)]
+                   (2, 96, 2, 48, 80, False, True, 48),
+                   (2, 128, 2, 20, 96, False, True, 64),
+                   (1, 192, 2, 20, 90, True, False, 96)]
 # rel L2 of each gradient against linear_scan_bwd_ref on the same inputs:
 # float32 sums in another order behind the exp(+-P) factors (1e-4); bf16
 # inputs against the float32 formulas on the same rounded values (1e-2)

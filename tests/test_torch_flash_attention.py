@@ -17,7 +17,7 @@ from repro.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention, attention_ref, flash_attention)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    SIMT_TILES, WGMMA_TILES, tiles)
+    SIMT_TILES, WGMMA_TILES, WGMMA_TILES_96, tiles)
 
 SHAPES = [  # tests/test_kernels.py:19-28
     (1, 128, 128, 2, 2, 64, True),
@@ -202,13 +202,15 @@ def test_bf16_p_arithmetic_independent_of_blk_k(B, Sq, Sk, Hq, Hkv, D,
     (torch.bfloat16, 128, WGMMA_TILES), (torch.bfloat16, 64, WGMMA_TILES),
     (torch.bfloat16, 32, SIMT_TILES), (torch.bfloat16, 16, SIMT_TILES),
     (torch.float32, 128, SIMT_TILES), (torch.float32, 64, SIMT_TILES),
-    (torch.float32, 16, SIMT_TILES), (torch.bfloat16, 96, SIMT_TILES),
+    (torch.float32, 16, SIMT_TILES), (torch.bfloat16, 96, WGMMA_TILES_96),
     (torch.float32, 96, SIMT_TILES)])
 def test_tiles_follow_dtype_and_head_dim(dtype, D, want):
-    """(dtype, D) alone picks the kernel: bf16 at D = 64, 128 the wgmma
-    kernel (128-row q tiles), everything else the SIMT kernel."""
+    """(dtype, D) alone picks the kernel: bf16 at D = 64, 96, 128 the
+    wgmma kernel (128-row q tiles; BK = 128 first, at D = 96 BK = 64
+    first), everything else the SIMT kernel."""
     assert tiles(dtype, D) is want
     assert all(bq == 128 and bk in (64, 128) for bq, bk in WGMMA_TILES)
+    assert WGMMA_TILES_96 == WGMMA_TILES[::-1]
     assert (64, 64) in SIMT_TILES
 
 
@@ -229,7 +231,7 @@ def test_wrapper_takes_the_tiles_of_its_kernel(dtype, D):
         if (blk_q, blk_k) not in allowed:
             with pytest.raises(ValueError, match="tile"):
                 flash_attention(q, k, v, blk_q=blk_q, blk_k=blk_k)
-    if allowed is WGMMA_TILES:  # 128-row q tiles: Sq = 64 is refused
+    if allowed is not SIMT_TILES:  # 128-row q tiles: Sq = 64 is refused
         with pytest.raises(ValueError, match="multiples of the tiles"):
             flash_attention(q[:, :64].contiguous(), k, v)
 
@@ -237,8 +239,9 @@ def test_wrapper_takes_the_tiles_of_its_kernel(dtype, D):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_at_head_dim_96_matches_pallas_interpret(dtype):
     """phi-3-vision-4.2b's head dim (3072 / 32 = 96, not a power of two):
-    the wrapper takes it, on its SIMT tiles, and matches the Pallas kernel
-    in interpret mode, which takes any D."""
+    the wrapper takes it, on the wgmma kernel's tiles in bf16 and the SIMT
+    kernel's in float32, and matches the Pallas kernel in interpret mode,
+    which takes any D."""
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(1, 128, 128, 4, 2, 96,
                                                seed=3), dtype)
     got = flash_attention(tq, tk, tv, causal=True)

@@ -134,10 +134,11 @@ def _split_bwd(r, k, v, lw_raw, u, s0, do, dS, chunk, post, tile=64):
     state before each tile and each tile's decay d_t; (0) per tile
     X_t = q_t^T dO_t; (1) from G = dS_T over the tiles in reverse, G_t = G
     and G = d_t G + X_t, the last G dstate0; (2) per tile from the state
-    before it and G_t, the formulas of csrc/linear_scan_bwd.cu: dlog_w as
-    the reverse sum of dq*q - dkap*kap, plus the sum over earlier rows of
-    dkt*kt, plus dd*d, less dq*q in pre-update, zero where the clamp
-    binds."""
+    before it and G_t, the gradient pass of csrc/linear_scan_bwd.cu: kt
+    never formed (kt G as (kap d) G, dkt d = v (d G)^T), r and k for the
+    bonus terms taken back from q and kap, and dlog_w as the reverse sum of
+    F = dq*q - (dkap + dkt d) kap, plus the column total of (dkt d) kap,
+    plus dd*d, less dq*q in pre-update, zero where the clamp binds."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     c = min(chunk, T)
@@ -164,42 +165,41 @@ def _split_bwd(r, k, v, lw_raw, u, s0, do, dS, chunk, post, tile=64):
     dv = torch.zeros(B, T, H, V)
     du = torch.zeros(H, K)
     for t, sl in enumerate(spans):  # pass 2
-        rb, kb, vb, lwb, dob = r[:, sl], k[:, sl], v[:, sl], lw[:, sl], \
-            do[:, sl]
-        n = rb.shape[1]
+        lwb, dob, vb = lw[:, sl], do[:, sl], v[:, sl]
+        n = lwb.shape[1]
         P = torch.cumsum(lwb, dim=1)
-        Pl, d = P[:, -1:], decay[t]
-        q = rb * torch.exp(P if post else P - lwb)
-        kap = kb * torch.exp(-P)
-        kt = kb * torch.exp(Pl - P)
+        d = decay[t]  # (B, H, K)
+        ePq, emP = torch.exp(P if post else P - lwb), torch.exp(-P)
+        q = r[:, sl] * ePq
+        kap = k[:, sl] * emP
         idx = torch.arange(n)
         M = (idx[:, None] >= idx[None, :]) if post else (
             idx[:, None] > idx[None, :])
         A = torch.einsum("bihk,bjhk->bhij", q, kap) * M
         dA = torch.einsum("bihv,bjhv->bhij", dob, vb)
+        rb, kb = q / ePq, kap / emP  # r and k again, as the kernel
         if u is not None:
-            A = A + torch.diag_embed(torch.einsum("bihk,hk,bihk->bhi", rb, u,
-                                                  kb))
+            A = A + torch.diag_embed(torch.einsum("bihk,hk,bihk->bhi",
+                                                  r[:, sl], u, k[:, sl]))
         dAM = dA * M
         dq = torch.einsum("bihv,bhkv->bihk", dob, before[t]) + torch.einsum(
             "bhij,bjhk->bihk", dAM, kap)
         dkap = torch.einsum("bhij,bihk->bjhk", dAM, q)
         dv[:, sl] = torch.einsum("bhij,bihv->bjhv", A, dob) + torch.einsum(
-            "bjhk,bhkv->bjhv", kt, Gs[t])
-        dkt = torch.einsum("bjhv,bhkv->bjhk", vb, Gs[t])
-        dd = (Gs[t] * before[t]).sum(-1)
+            "bjhk,bhkv->bjhv", kap * d[:, None], Gs[t])
+        dktd = torch.einsum("bjhv,bhkv->bjhk", vb, Gs[t]) * d[:, None]
+        ddd = (Gs[t] * before[t]).sum(-1) * d
         db = torch.diagonal(dA, dim1=-2, dim2=-1).transpose(1, 2)[..., None] \
             if u is not None else torch.zeros(B, n, H, 1)
         uu = u if u is not None else torch.zeros(H, K)
-        dr[:, sl] = dq * torch.exp(P if post else P - lwb) + db * uu * kb
-        dk[:, sl] = dkap * torch.exp(-P) + dkt * torch.exp(Pl - P) + \
-            db * uu * rb
+        dks = dkap + dktd
+        dr[:, sl] = dq * ePq + db * uu * kb
+        dk[:, sl] = dks * emP + db * uu * rb
         dPq = dq * q
-        Y = dPq - dkap * kap
-        Z = dkt * kt
-        rev = torch.flip(torch.cumsum(torch.flip(Y, [1]), 1), [1])
-        ex = torch.cumsum(Z, 1) - Z
-        dlw[:, sl] = rev + ex + (dd * d)[:, None] - (0 if post else dPq)
+        F = dPq - dks * kap
+        rev = torch.flip(torch.cumsum(torch.flip(F, [1]), 1), [1])
+        ztot = (dktd * kap).sum(1, keepdim=True)
+        dlw[:, sl] = rev + ztot + ddd[:, None] - (0 if post else dPq)
         du += (db * rb * kb).sum((0, 1))
     dlw = dlw * ((lw_raw >= lo) & (lw_raw <= 0))
     return dr, dk, dv, dlw, du if u is not None else None, \
