@@ -12,12 +12,12 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    libraries) and ``linear_scan`` (forward and backward, two libraries)
    kernels from their sources under ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` each, all at once) and print the build seconds and ptxas
-   registers and spills (by kernel for the flash kernels at D = 96 and the
-   linear_scan backward); the wgmma flash backward, the wgmma flash
-   forward at D = 96 and the scan backward's gradient pass must spill
-   nothing; ``cuobjdump -sass`` of the flash forward library and of the
-   flash backward library must each show HGMMA (wgmma on the tensor cores)
-   and UTMALDG (TMA loads), and of the scan backward HMMA (its 3xTF32
+   registers and spills (by kernel for the flash kernels at D = 96 and
+   112 and the linear_scan backward); the wgmma flash backward, the wgmma
+   flash forward at D = 96 and 112 and the scan backward's gradient pass
+   must spill nothing; ``cuobjdump -sass`` of the flash forward library and
+   of the flash backward library must each show HGMMA (wgmma on the tensor
+   cores) and UTMALDG (TMA loads), and of the scan backward HMMA (its 3xTF32
    mma.sync); the gradient pass's shared bytes and blocks an SM printed
    (two required);
 2. the kernel against its plain PyTorch version on the card, for all 32
@@ -98,6 +98,24 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    route's loss within 1e-3; the kernel at that shape, at each of its
    tiles, against ``attention_ref`` (2e-2) and timed beside it, SDPA and
    the bound;
+7c. zamba2-7b at full width and depth (the hybrid family: 81 Mamba-2
+   layers, d_model 3584, 112 SSM heads of 64, state 64, conv 4; the shared
+   attention block, 32/32 heads of 112, d_ff 14336, after every 6th layer,
+   13 times; vocab 32000; bf16, seed 0): ``loss_fn`` at B=2, S=2048
+   (finite, within 1.0 of ln(vocab), exactly 13 ``flash_attention``
+   launches at D = 112 and 81 ``linear_scan`` launches), timed; the
+   forward with ``flash_attention`` and then ``scan_op`` on their plain
+   versions, in bf16 (loss within 1e-3) and on a float32 copy (loss 1e-4,
+   last logits 1e-3 rel L2, argmax equal); float32 prefill-then-decode at
+   S = 8 (1e-3); ``ServeEngine``, 4 slots, 6 requests of 64 tokens x 32
+   new (re-prefills at most 96 wide, 81 scan launches a prefill, none of
+   either kernel elsewhere); bf16 prefill-then-decode at S = 128 (rel L2
+   1.13, twice its reading; the -60/c clamp binds there); the profile; the
+   flash kernel at its shape at each tile against ``attention_ref`` (2e-2)
+   and timed beside SDPA, the plain version, the SIMT float32 kernel and
+   the bound; the scan at its shape (B=2, T=2048,
+   H=112, K=V=64, post-update, c=256) against ``linear_scan_ref`` (1e-3)
+   and timed;
 8. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
    6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
    then prefill-then-decode against the full-sequence forward on one
@@ -188,8 +206,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
 door, the network search and the serving tier, which must launch none;
-one ``loss_fn`` forward of each model; each serving run; the olmo-1b and
-the rwkv6-1.6b train steps) and read just after it.
+one ``loss_fn`` forward of each model (both counts for zamba2-7b); each
+serving run; the olmo-1b and the rwkv6-1.6b train steps) and read just
+after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -226,11 +245,28 @@ FLASH_SHAPES = [  # tests/test_kernels.py:19-28, (B, Sq, Sk, Hq, Hkv, D, causal)
     (2, 128, 128, 2, 2, 64, False),
     (1, 512, 512, 2, 2, 64, True),
     (1, 256, 256, 4, 2, 96, True),     # phi-3-vision-4.2b's head dim
+    (1, 256, 256, 4, 2, 112, True),    # zamba2-7b's shared block's
 ]
 LLM_SHAPE = (2, 2048, 2048, 32, 8, 128, True)  # llama3-8b, loss_fn at S=2048
 # phi-3-vision-4.2b's loss_fn: 576 patch embeddings + 1472 text tokens
 PHI3_SHAPE = (2, 2048, 2048, 32, 32, 96, True)
 PHI3_TEXT = 1472
+# zamba2-7b's loss_fn at B=2, S=2048: the shared block (32/32 heads of 112)
+# and the Mamba-2 scan (112 heads, K = N = 64, V = P = 64, c = 256)
+ZAMBA2_SHAPE = (2, 2048, 2048, 32, 32, 112, True)
+ZAMBA2_SCAN = (2, 2048, 112, 64, 64, True, False, 256)
+# float32 prefill-vs-decode: a prefix short enough that the chunked form's
+# -60/c clamp lies below every log_w = -dt of the prefix (dt ~ softplus of
+# N(0, 1) at init), so that it binds nowhere and the per-token step, which
+# clamps at -60, computes the same recurrence
+ZAMBA2_DECODE_S = 8
+# bf16 prefill-vs-decode at S = 128, held at twice its reading of 0.5646
+# (H100 80GB HBM3, 700 W), the argmax not required: there the chunked form
+# clamps log_w at -60/c = -0.47 and the per-token step at -60 (the
+# reference's own semantics, ROADMAP §3), and at init most log_w = -dt lie
+# below -0.47, so the prefill and the step run other recurrences; the
+# float32 check at ZAMBA2_DECODE_S, where no clamp binds, holds 1e-3
+ZAMBA2_BF16_DECODE = 1.13
 # linear_scan vs linear_scan_ref: float32 sums in another order behind the
 # two-sided exp(+-P) factors (1e-3); bf16 inputs and outputs (5e-2);
 # tests/test_kernels.py's
@@ -341,14 +377,15 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 def phase_build() -> None:
     """All five kernel sources (maestro_eval, the flash forward, linear_scan,
     the flash backward, the linear_scan backward), one nvcc each, started
-    together; registers and spills of the flash kernels at D = 96 and of
-    the linear_scan backward printed.  Held: the wgmma flash backward, the
-    wgmma flash forward at D = 96 and the scan backward's gradient pass
-    spill nothing; the SASS of the flash forward library and of the flash
-    backward library each hold the tensor-core product and a TMA load, and
-    the scan backward's holds HMMA (mma.sync on the tensor cores); the
-    gradient pass's shared bytes and the blocks of it an SM holds (the CUDA
-    runtime's occupancy, registers included) printed, two required."""
+    together; registers and spills of the flash kernels at D = 96 and 112
+    and of the linear_scan backward printed.  Held: the wgmma flash
+    backward, the wgmma flash forward at D = 96 and 112 and the scan
+    backward's gradient pass spill nothing; the SASS of the flash forward
+    library and of the flash backward library each hold the tensor-core
+    product and a TMA load, and the scan backward's holds HMMA (mma.sync
+    on the tensor cores); the gradient pass's shared bytes and the blocks
+    of it an SM holds (the CUDA runtime's occupancy, registers included)
+    printed, two required."""
     from concurrent.futures import ThreadPoolExecutor
     from importlib import import_module
     from repro_torch.kernels import _build
@@ -377,25 +414,28 @@ def phase_build() -> None:
         f"by instance: {spills or 'not rebuilt in this run'}")
     check(all(v == (0, 0) for v in spills.values()), "the wgmma flash "
           f"backward spills registers: {spills}")
-    held = {}  # the wgmma forward at D = 96 and the scan's gradient pass
+    held = {}  # the wgmma forward at D = 96, 112 and the gradient pass
     for (src, _), (_, _, report) in zip(srcs[1:], results[1:]):
         for fn, regs, st, ld in _build.ptxas_table(report):
-            if "Li96E" in fn or src.stem == "linear_scan_bwd":
+            if "Li96E" in fn or "Li112E" in fn or \
+                    src.stem == "linear_scan_bwd":
                 log(f"[build] ptxas {src.stem} {fn}: {regs} registers, "
                     f"spill stores {st} bytes, spill loads {ld} bytes")
-            if "flash_wgmma_kernelILi96E" in fn or "lsb_grad" in fn:
+            if "flash_wgmma_kernelILi96E" in fn or \
+                    "flash_wgmma_kernelILi112E" in fn or "lsb_grad" in fn:
                 held[fn] = (st, ld)
     if results[1][2] and results[4][2]:
         n_fa = sum("flash_wgmma" in fn for fn in held)
-        check((n_fa, len(held) - n_fa) == (2, 4), "ptxas listed "
-              f"{sorted(held)}, not the two flash_wgmma_kernel<96, BK> and "
-              "the four lsb_grad<T, VEC> instances")
-        check(all(v == (0, 0) for v in held.values()), "the D = 96 wgmma "
-              f"forward or the scan backward's gradient pass spills: {held}")
+        check((n_fa, len(held) - n_fa) == (4, 4), "ptxas listed "
+              f"{sorted(held)}, not the four flash_wgmma_kernel<96 or 112, "
+              "BK> and the four lsb_grad<T, VEC> instances")
+        check(all(v == (0, 0) for v in held.values()), "the D = 96 or 112 "
+              "wgmma forward or the scan backward's gradient pass spills: "
+              f"{held}")
     else:
         log("[build] the flash forward or the scan backward library was not "
             "rebuilt in this run (no ptxas report): the spill checks of the "
-            "D = 96 wgmma forward and of lsb_grad are not held")
+            "D = 96 and 112 wgmma forwards and of lsb_grad are not held")
     sass_check(results[1][0])
     sass_check(results[3][0])
     sass_check(results[4][0], need=("HMMA",))
@@ -543,14 +583,16 @@ def phase_main_path(device, cfg=None, scales=(1, 2, 4, 8)) -> None:
                     f"{p['power_mw']:.4f}")
 
 
-def profile_call(fn, label: str, device, kernel: str | None = None) -> dict:
+def profile_call(fn, label: str, device,
+                 kernel: str | tuple[str, ...] | None = None) -> dict:
     """Where one call of ``fn`` spends its time: the card's busy time
     (kernels and copies, by ``torch.profiler``) against the call's wall
     time, the device kernels and host operators that dominate, and the
     device time and share of busy time of the kernels whose name holds
-    ``kernel``.  One warm-up call, one unprofiled and one profiled call.
-    Returns the unprofiled and the profiled call's wall, the busy seconds
-    and the device time by name ({name: [count, us]})."""
+    ``kernel`` (each of several, apart).  One warm-up call, one unprofiled
+    and one profiled call.  Returns the unprofiled and the profiled call's
+    wall, the busy seconds and the device time by name ({name: [count,
+    us]})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(device)
@@ -579,10 +621,10 @@ def profile_call(fn, label: str, device, kernel: str | None = None) -> dict:
                                 )[:5]:
         log(f"[profile]   device {us / 1e3:.3f} ms ({us / 1e6 / busy_s:.4f} "
             f"of busy) in {n} x {name[:70]}")
-    if kernel is not None:
-        n, us = (sum(v[i] for k, v in by_name.items() if kernel in k)
+    for part in (kernel,) if isinstance(kernel, str) else kernel or ():
+        n, us = (sum(v[i] for k, v in by_name.items() if part in k)
                  for i in (0, 1))
-        log(f"[profile]   {kernel}: device {us / 1e3:.3f} ms in {n} "
+        log(f"[profile]   {part}: device {us / 1e3:.3f} ms in {n} "
             f"launches, {us / 1e6 / max(busy_s, 1e-12):.4f} of busy")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in host[:6]:
@@ -1480,13 +1522,14 @@ def phase_serving(cfg, params, device, kernel, n_requests: int = 6,
     return done, eng.prefill_launches, decode_launches, eng.widths
 
 
-def profile_llm(cfg, params, device, kernel: str, B: int = 2, S: int = 2048,
+def profile_llm(cfg, params, device, kernel: str | tuple[str, ...],
+                B: int = 2, S: int = 2048,
                 slots: int = 4, prompt: int = 512, steps: int = 4) -> None:
     """Where the time goes: one ``loss_fn`` forward at (B, S), and
     ``steps`` decode steps of a ``slots``-wide batch after a prefill of
     ``prompt`` tokens, each step ending in the host read of the next
-    tokens as the engine's does; the device kernels named ``kernel*``
-    apart."""
+    tokens as the engine's does; the device kernels named ``kernel*`` (or
+    each of several) apart."""
     from repro_torch.models import registry
     rng = np.random.default_rng(2)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
@@ -1515,11 +1558,13 @@ def profile_llm(cfg, params, device, kernel: str, B: int = 2, S: int = 2048,
 
 
 def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
-                            rel_tol: float = 5e-2) -> float:
+                            rel_tol: float = 5e-2,
+                            need_argmax: bool = True) -> float:
     """Decoding token S-1 with the cache of the prefix against the
     full-sequence forward at S-1 (``tests/test_archs_smoke.py``'s check),
     at full width in ``cfg.dtype``: relative L2 error of the logits (held
-    to ``rel_tol``), and the argmax.  Returns the relative error."""
+    to ``rel_tol``), and the argmax (held equal with ``need_argmax``).
+    Returns the relative error."""
     from repro_torch.models import registry, transformer
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
@@ -1537,8 +1582,10 @@ def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
     rel = float((a - b).norm() / a.norm())
     same = int(a.argmax()) == int(b.argmax())
     log(f"[prefill-vs-decode] {cfg.name} {str(cfg.dtype)[6:]} S={S}: logits "
-        f"rel L2 err {rel:.4g} (limit {rel_tol}), argmax equal {same}")
-    check(rel <= rel_tol and same, "prefill-then-decode "
+        f"rel L2 err {rel:.4g} (limit {rel_tol}), argmax equal {same}"
+        f"{'' if need_argmax else ' (not required)'}; top-2 gap full "
+        f"{top2_gap(a[None])}, decode {top2_gap(b[None])}")
+    check(rel <= rel_tol and (same or not need_argmax), "prefill-then-decode "
           "disagrees with the full-sequence forward")
     return rel
 
@@ -1604,17 +1651,11 @@ def phase_phi3(device, name: str) -> dict:
     count set to 0 just before and read just after (32: one a layer, on
     the wgmma kernel at D = 96); the loss finite and within 1.0 of
     ln(vocab); the same forward on the ``attention_ref`` route, loss within
-    1e-3 relative.  Then the kernel at ``PHI3_SHAPE``, at each of its
-    tiles, against ``attention_ref`` (2e-2) and timed beside it, SDPA and
-    the bound, with the blocks an SM each tile's instance holds (the CUDA
-    runtime's occupancy).  Returns the D = 96 forward's record (the
-    default tile, BK = 64)."""
-    import torch.nn.functional as F
+    1e-3 relative.  Then the kernel at ``PHI3_SHAPE`` (``flash_shape_record``).
+    Returns the D = 96 forward's record (the default tile, BK = 64)."""
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        tiles, wgmma_occupancy)
     from repro_torch.models import layers, registry
     from repro_torch.models.param import count_params, init_params
     cfg = REGISTRY["phi-3-vision-4.2b"]
@@ -1663,9 +1704,32 @@ def phase_phi3(device, name: str) -> dict:
           "attention_ref route")
     del params, batch
     torch.cuda.empty_cache()
+    return flash_shape_record(
+        device, name, PHI3_SHAPE, "phi-3-vision-4.2b", launches,
+        "flash_attention (D=96)", "flash_wgmma_kernel at D = 96: two "
+        "64-column TMA boxes a row, the second half outside the tensor "
+        "(zeros on load, clipped on store), S over 6 k16 steps, P.V as "
+        "m64n96k16")
 
-    Bq, Sq, Sk, Hq, Hkv, D, causal = PHI3_SHAPE
-    q, k, v = qkv(PHI3_SHAPE, torch.bfloat16, device, seed=4)
+
+def flash_shape_record(device, name: str, shape, model: str, launches: int,
+                       record: str, design: str,
+                       simt: bool = False) -> dict:
+    """The bf16 kernel at ``shape`` (``model``'s ``loss_fn``), at each of
+    its tiles, against ``attention_ref`` (2e-2) and timed beside it, SDPA
+    and the bound, with the blocks an SM each tile's instance holds (the
+    CUDA runtime's occupancy); with ``simt``, the float32 SIMT kernel timed
+    there too (TF32 off; its check is ``phase_flash_vs_plain``'s).
+    Returns the record (``record`` its name, ``design`` the start of its
+    design note) at the default tile, with ``launches`` from the model's
+    forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        tiles, wgmma_occupancy)
+    Bq, Sq, Sk, Hq, Hkv, D, causal = shape
+    q, k, v = qkv(shape, torch.bfloat16, device, seed=4)
     want = attention_ref(q, k, v, causal=causal).float()
     abs_err, by_tile = 0.0, {}
     for t in tiles(torch.bfloat16, D):
@@ -1674,11 +1738,11 @@ def phase_phi3(device, name: str) -> dict:
         d = (got - want).abs()
         bad = int((d > 2e-2 + 2e-2 * want.abs()).sum())
         abs_err = max(abs_err, float(d.max()))
-        log(f"[flash-vs-plain] {PHI3_SHAPE} bf16 (wgmma at D = 96) tile "
+        log(f"[flash-vs-plain] {shape} bf16 (wgmma at D = {D}) tile "
             f"{t}: max abs err {float(d.max()):.3g}, beyond atol=rtol=2e-2: "
             f"{bad}")
-        check(bad == 0 and bool(torch.isfinite(got).all()), "the D = 96 "
-              f"kernel disagrees with attention_ref at phi-3's shape, tile "
+        check(bad == 0 and bool(torch.isfinite(got).all()), f"the D = {D} "
+              f"kernel disagrees with attention_ref at {model}'s shape, tile "
               f"{t}")
         del got, d
         by_tile[t] = time_ms(functools.partial(
@@ -1690,7 +1754,8 @@ def phase_phi3(device, name: str) -> dict:
     plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal), 20)
+        qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv), 20)
+    del qt, kt, vt
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
     flops = 4 * Bq * Hq * D * pairs
     nbytes = 2 * (2 * Bq * Sq * Hq * D + 2 * Bq * Sk * Hkv * D)
@@ -1699,29 +1764,175 @@ def phase_phi3(device, name: str) -> dict:
     bound = max(ops_ms, bytes_ms)
     for t, t_ms in by_tile.items():
         smem, blocks = wgmma_occupancy(D, t[1])
-        log(f"[kernel] flash_attention {PHI3_SHAPE} bf16 (wgmma) tile {t}: "
+        log(f"[kernel] flash_attention {shape} bf16 (wgmma) tile {t}: "
             f"{t_ms:.4f} ms ({flops / t_ms / 1e9:.6g} TFLOP/s); {smem} "
             f"bytes of shared memory a block, {blocks} blocks an SM")
-    log(f"[kernel] flash_attention {PHI3_SHAPE} bf16 (wgmma): kernel "
+    if simt:
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        for t in tiles(torch.float32, D):
+            t_ms = time_ms(functools.partial(
+                flash_attention, q32, k32, v32, causal=causal, blk_q=t[0],
+                blk_k=t[1]), 5)
+            log(f"[kernel] flash_attention {shape} float32 (SIMT) tile {t}: "
+                f"{t_ms:.4f} ms ({flops / t_ms / 1e9:.6g} TFLOP/s)")
+        del q32, k32, v32
+    log(f"[kernel] flash_attention {shape} bf16 (wgmma): kernel "
         f"{ms:.4f} ms at the default tile {tile}, plain {plain_ms:.4f} ms, "
         f"SDPA {library_ms:.4f} ms, bound {bound:.4f} ms (operations "
         f"{ops_ms:.4f}: {flops / 1e9:.6g} GFLOP at 989 TFLOP/s bf16; bytes "
         f"{bytes_ms:.4f}); {bound / ms:.4f} of the bound")
     return {
-        "name": "flash_attention (D=96)", "route": "cuda",
+        "name": record, "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
-        "design": "flash_wgmma_kernel at D = 96: two 64-column TMA boxes a "
-                  "row, the second half outside the tensor (zeros on load, "
-                  "clipped on store), S over 6 k16 steps, P.V as m64n96k16, "
-                  f"BQ={tile[0]}, BK={tile[1]}; times at "
-                  f"phi-3-vision-4.2b's {PHI3_SHAPE}",
+        "design": f"{design}, BQ={tile[0]}, BK={tile[1]}; times at "
+                  f"{model}'s {shape}",
         "launches": launches, "max_abs_err": abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": library_ms,
     }
+
+
+def float_params(tree) -> dict:
+    """A float32 copy of a model's params (no grad)."""
+    return {k: float_params(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def phase_zamba2(device, name: str) -> list[dict]:
+    """zamba2-7b at full width and depth (81 Mamba-2 layers, d_model 3584,
+    112 SSM heads of 64, state 64, conv 4; the shared attention block, 32/32
+    heads of 112 and d_ff 14336, applied after every 6th layer, 13 times;
+    vocab 32000; bf16) with random weights drawn on the card from seed 0.
+    ``loss_fn`` at B=2, S=2048: once to warm up, then timed with both
+    launch counts set to 0 just before and read just after (13
+    ``flash_attention`` at D = 112 and 81 ``linear_scan``, post-update);
+    the loss finite and within 1.0 of ln(vocab).  The forward with
+    ``flash_attention`` and then ``scan_op`` forced onto their plain
+    versions: in bf16 the loss within 1e-3 (the argmax printed, not
+    required, as for rwkv6-1.6b), on a float32 copy of the weights the loss
+    within 1e-4, the last logits within 1e-3 rel L2 and the argmax equal;
+    float32 prefill-then-decode at S = ``ZAMBA2_DECODE_S`` within 1e-3
+    (the prefix's smallest log_w printed and held above the -60/S clamp).
+    Serving: ``ServeEngine`` with 4 slots answers 6 requests of 64 tokens x
+    32 new (every re-prefill at most 96 wide; 81 scan launches a prefill,
+    no flash launch in the run, no scan launch in decode); bf16
+    prefill-then-decode at S = 128 (``ZAMBA2_BF16_DECODE``); ``profile_llm``.
+    Then the flash kernel at ``ZAMBA2_SHAPE`` (``flash_shape_record``, the
+    SIMT float32 kernel timed there too) and the scan at ``ZAMBA2_SCAN``
+    against ``linear_scan_ref`` (1e-3, float32) and timed
+    (``scan_record``).  Returns the two records."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import layers, registry
+    from repro_torch.models.param import count_params, init_params
+    from repro_torch.models.transformer import n_attn_apps
+    cfg = REGISTRY["zamba2-7b"]
+    apps = n_attn_apps(cfg)
+    t1 = time.perf_counter()
+    params = init_params(registry.specs(cfg), 0, device)
+    sync(device)
+    log(f"[zamba2] {cfg.name} at full width and depth: "
+        f"{count_params(registry.specs(cfg))} parameters drawn on the card "
+        f"in {time.perf_counter() - t1:.2f} s; {cfg.n_layers} Mamba-2 layers "
+        f"(d_model {cfg.d_model}, {cfg.ssm_heads} heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.conv_width}, "
+        f"chunk {cfg.chunk_size}), the shared block {apps} times "
+        f"({cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff})")
+    B, S = ZAMBA2_SHAPE[:2]
+    batch = llm_batch(cfg, device, B, S)
+    with torch.no_grad():
+        registry.loss_fn(params, batch, cfg)
+        sync(device)
+        flash_attention.launches = linear_scan.launches = 0
+        t0 = time.perf_counter()
+        loss = float(registry.loss_fn(params, batch, cfg))
+        sync(device)
+        seconds = time.perf_counter() - t0
+        launches = (flash_attention.launches, linear_scan.launches)
+    del batch
+    log(f"[zamba2] loss_fn B={B} S={S}: loss {loss:.6g} (ln vocab "
+        f"{np.log(cfg.vocab):.6g}), {seconds:.4f} s, {B * S / seconds:.6g} "
+        f"tokens/s; flash_attention launches {launches[0]}, linear_scan "
+        f"launches {launches[1]}")
+    check(np.isfinite(loss) and abs(loss - np.log(cfg.vocab)) < 1.0,
+          f"zamba2 loss {loss} is not near ln(vocab)")
+    check(launches == (apps, cfg.n_layers), f"zamba2 loss_fn launched "
+          f"(flash_attention, linear_scan) {launches} times, not ({apps}, "
+          f"{cfg.n_layers})")
+    routes = ((layers, "flash_attention", flash_attention, attention_ref),
+              (scan_ops, "scan_op", linear_scan, linear_scan_ref))
+    for route in routes:
+        phase_plain_route(cfg, params, device, *route, need_argmax=False)
+    cfg32 = cfg.replace(dtype=torch.float32)
+    params32 = float_params(params)
+    for route in routes:
+        phase_plain_route(cfg32, params32, device, *route, rel_tol=1e-4,
+                          l2_tol=1e-3)
+    seen, wrapper = [], scan_ops.scan_op
+
+    def recording(r, k, v, log_w, *a, **kw):
+        seen.append(float(log_w.min()))
+        return wrapper(r, k, v, log_w, *a, **kw)
+    scan_ops.scan_op = recording
+    try:
+        phase_prefill_vs_decode(cfg32, params32, device, S=ZAMBA2_DECODE_S,
+                                rel_tol=1e-3)
+    finally:
+        scan_ops.scan_op = wrapper
+    clamp = -60.0 / ZAMBA2_DECODE_S
+    log(f"[zamba2] float32 prefill-vs-decode: smallest log_w of the prefix "
+        f"{min(seen):.6g}, the chunked form's clamp -60/{ZAMBA2_DECODE_S} = "
+        f"{clamp:.6g}")
+    check(min(seen) > clamp, "the -60/c clamp binds on the float32 "
+          "prefill-vs-decode prefix: the check compares two recurrences")
+    del params32
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    _, pre_l, dec_l, widths = phase_serving(
+        cfg, params, device, linear_scan, max_len=128, prompt_lens=(64, 64))
+    check(max(widths) <= 96, f"a zamba2 re-prefill was {max(widths)} wide")
+    check(pre_l == [cfg.n_layers] * len(pre_l) and dec_l == 0,
+          f"zamba2 serving launched linear_scan {pre_l} times in its "
+          f"prefills and {dec_l} times in decode, not {cfg.n_layers} and 0")
+    check(flash_attention.launches == 0, f"zamba2 serving launched "
+          f"flash_attention {flash_attention.launches} times; its prefill "
+          "runs the cache path")
+    phase_prefill_vs_decode(cfg, params, device, rel_tol=ZAMBA2_BF16_DECODE,
+                            need_argmax=False)
+    profile_llm(cfg, params, device, ("flash_", "linear_scan"))
+    del params
+    torch.cuda.empty_cache()
+    records = [flash_shape_record(
+        device, name, ZAMBA2_SHAPE, cfg.name, launches[0],
+        "flash_attention (D=112)", "flash_wgmma_kernel at D = 112: two "
+        "64-column TMA boxes a row, the second three quarters inside the "
+        "tensor (zeros on load, clipped on store), S over 7 k16 steps, P.V "
+        "as m64n112k16", simt=True)]
+    r, k, v, lw, u, s0 = scan_inputs(ZAMBA2_SCAN, torch.float32, device,
+                                     state=True)
+    *_, post, _, chunk = ZAMBA2_SCAN
+    got = linear_scan(r, k, v, lw, u, s0, chunk=chunk, post_update=post)
+    want = linear_scan_ref(r, k, v, lw, u=u, state0=s0, chunk=chunk,
+                           post_update=post)
+    worst = 0.0
+    for part, g, w in zip(("o", "state"), got, want):
+        d = (g - w).abs()
+        bad = int((d > 1e-3 + 1e-3 * w.abs()).sum())
+        worst = max(worst, float(d.max()))
+        log(f"[scan-vs-plain] {ZAMBA2_SCAN} float32 state0 {part}: max abs "
+            f"err {float(d.max()):.3g}, beyond atol=rtol=1e-3: {bad}")
+        check(bad == 0, f"linear_scan at zamba2's shape: {part} disagrees")
+    del r, k, v, lw, s0, got, want
+    records.append(scan_record(device, launches[1], worst, name, ZAMBA2_SCAN,
+                               "linear_scan (zamba2-7b)"))
+    return records
 
 
 # ----------------------------------------------------------------------
@@ -1888,24 +2099,25 @@ def scan_passes(shape) -> list[tuple[str, int, int]]:
              bh * sum(2 * n * K * V + (K + V) * n * (n + 1) for n in rows))]
 
 
-def scan_record(device, launches: int, max_abs_err: float,
-                name: str) -> dict:
-    """Kernel (and each of its passes) and plain version at rwkv6-1.6b's
-    shape, and the bound."""
+def scan_record(device, launches: int, max_abs_err: float, name: str,
+                shape=RWKV_SCAN, record: str = "linear_scan") -> dict:
+    """Kernel (and each of its passes) and plain version at ``shape``
+    (rwkv6-1.6b's by default), and the bound; ``record`` names the
+    record."""
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
     from repro_torch.kernels.linear_scan.linear_scan import (_library,
                                                              launch_args)
-    *_, post, _, chunk = RWKV_SCAN
-    r, k, v, lw, u, s0 = scan_inputs(RWKV_SCAN, torch.float32, device)
+    *_, post, _, chunk = shape
+    r, k, v, lw, u, s0 = scan_inputs(shape, torch.float32, device)
     ms = time_ms(lambda: linear_scan(r, k, v, lw, u, s0, chunk=chunk,
                                      post_update=post), 20)
     plain_ms = time_ms(lambda: linear_scan_ref(
         r, k, v, lw, u=u, state0=s0, chunk=chunk, post_update=post), 3)
-    flops, chunked, nbytes = scan_work(RWKV_SCAN)
+    flops, chunked, nbytes = scan_work(shape)
     mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
     ops_ms = flops / PEAK_FP32 * 1e3
     bytes_ms = nbytes / mem_bw * 1e3
-    log(f"[kernel] linear_scan {RWKV_SCAN} float32: kernel {ms:.4f} ms, "
+    log(f"[kernel] linear_scan {shape} float32: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
         f"(operations {ops_ms:.4f}: {flops / 1e9:.6g} GFLOP token by token "
         f"at 67 TFLOP/s float32; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} "
@@ -1916,14 +2128,14 @@ def scan_record(device, launches: int, max_abs_err: float,
     # each pass alone, on the scratch the whole scan left
     _, _, args, keep = launch_args(r, k, v, lw, u, s0, chunk, post)
     lib = _library()
-    for which, (pname, blocks, pflops) in enumerate(scan_passes(RWKV_SCAN)):
+    for which, (pname, blocks, pflops) in enumerate(scan_passes(shape)):
         p_ms = time_ms(lambda: lib.linear_scan_pass(which, *args), 20)
         log(f"[kernel] linear_scan {pname} pass: {p_ms:.4f} ms in {blocks} "
             f"blocks of 256 threads, {pflops / 1e9:.6g} GFLOP of products, "
             f"{pflops / p_ms / 1e6:.6g} GFLOP/s")
     del keep
     return {
-        "name": "linear_scan", "route": "cuda",
+        "name": record, "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/linear_scan.py:84",
         "design": "float32 SIMT: state pass, tile-to-tile hand-off, output "
@@ -3066,6 +3278,8 @@ def main() -> int:
     log(f"[llama] {time.perf_counter() - t0:.1f} s")
     records.append(phase_phi3(device, name))
     log(f"[phi3] {time.perf_counter() - t0:.1f} s")
+    records += phase_zamba2(device, name)
+    log(f"[zamba2] {time.perf_counter() - t0:.1f} s")
 
     scan_abs = phase_scan_vs_plain(device)
     scan_bwd_abs = phase_scan_bwd_vs_plain(device)
@@ -3091,11 +3305,7 @@ def main() -> int:
     phase_plain_route(cfg, params, device, scan_ops, "scan_op", linear_scan,
                       linear_scan_ref, need_argmax=False)
     cfg32 = cfg.replace(dtype=torch.float32)
-
-    def f32(tree):
-        return {k: f32(v) if isinstance(v, dict) else v.float()
-                for k, v in tree.items()}
-    params32 = f32(params)
+    params32 = float_params(params)
     phase_plain_route(cfg32, params32, device, scan_ops, "scan_op",
                       linear_scan, linear_scan_ref, rel_tol=1e-4,
                       l2_tol=1e-3)

@@ -33,29 +33,31 @@
 // by operations: the card's bound is that work over its bf16 tensor-core
 // rate (989 TFLOP/s dense).
 //
-// 1. bfloat16 at D = 64, 96 or 128 (every full-width attention model of
-//    the repo; 96 is phi-3-vision-4.2b's 3072 / 32): flash_wgmma_kernel, on
-//    the tensor cores.
+// 1. bfloat16 at D = 64, 96, 112 or 128 (every full-width attention model
+//    of the repo; 96 is phi-3-vision-4.2b's 3072 / 32, 112 zamba2-7b's
+//    shared block's 3584 / 32): flash_wgmma_kernel, on the tensor cores.
 //    * One block of two consumer warpgroups (256 threads) owns (head,
 //      batch, a 128-row q tile); each warpgroup owns 64 query rows, the M
 //      of one wgmma.  K/V tiles are BK = 64 or 128 keys; the wrapper's
 //      default is the faster on the H100: 128 at D = 64 and 128, 64 at
-//      D = 96 (flash_wgmma_occupancy gives the blocks an SM each holds).
+//      D = 96 and 112 (flash_wgmma_occupancy gives the blocks an SM each
+//      holds).
 //    * Loads are TMA (cp.async.bulk.tensor over 4-D (D, H, S, B) maps of
 //      q, k and v with their real strides) into 128-byte-swizzled shared
 //      memory, completing on one mbarrier per stage.  With that swizzle a
 //      box row is at most 64 bf16, so D = 96 and 128 land as two 64-column
-//      boxes and the wgmma descriptors step across them.  At D = 96 the
-//      maps keep the real inner dimension (rows of 192 bytes), so the
-//      second box, at column 64, reaches past the tensor: TMA fills its
-//      columns 96-127 with zeros on a load (the mbarrier still counts the
-//      whole box, fill included) and drops them on a store; the shared
-//      tiles are laid out as at D = 128.  q is loaded
+//      boxes and the wgmma descriptors step across them.  At D = 96 and
+//      112 the maps keep the real inner dimension (rows of 192 or 224
+//      bytes), so the second box, at column 64, reaches past the tensor:
+//      TMA fills its columns D-127 with zeros on a load (the mbarrier
+//      still counts the whole box, fill included) and drops them on a
+//      store; the shared tiles are laid out as at D = 128.  q is loaded
 //      once; K/V sit in a two-stage ring: thread 0 issues tile j+1 while
 //      both warpgroups compute tile j, and a __syncthreads at the end of
 //      each tile marks its stage free before it is refilled.
-//    * S = q.k^T: wgmma m64nBKk16 over D / 16 k16 steps (6 at D = 96: the
-//      zero-filled columns are never read), bf16 x bf16 into float32, A =
+//    * S = q.k^T: wgmma m64nBKk16 over D / 16 k16 steps (6 at D = 96, 7 at
+//      112: the zero-filled columns are never read), bf16 x bf16 into
+//      float32, A =
 //      q and B = the K tile from shared memory, both K-major (no
 //      transpose).
 //      Products of two bf16 values are exact in float32, so S equals the
@@ -75,7 +77,9 @@
 //      (the leading byte offset steps between atoms along N), so the
 //      zero-filled columns 96-127 are not read, and o holds 48 registers
 //      where N = 128 against those zeros would hold 64 and do a third more
-//      P.V work for nothing.
+//      P.V work for nothing.  At D = 112 it is m64n112k16, reading three
+//      quarters of the second atom (six of the eight 16-byte chunks of each
+//      swizzled row): o holds 56 registers.
 //    * Precision: P is rounded to bf16 (relative error <= 2^-9 an
 //      element) where the Pallas kernel keeps it float32; l is summed from
 //      the float32 P before rounding.  The output error this adds is about
@@ -85,18 +89,20 @@
 //    * Epilogue: o / max(l, 1e-30) is rounded to bf16, written into the
 //      warpgroup's own (now free) q rows in the same swizzled layout,
 //      fenced to the async proxy and stored by TMA (at D = 96, 12 of the
-//      16 chunks of a row; the store clips at column 96).  m and l are in base
-//      2, so lse = (m + log2(l)) ln 2, after the quad reduction of l; one
-//      lane of each quad stores it.
+//      16 chunks of a row, at 112, 14; the store clips at column D).  m
+//      and l are in base 2, so lse = (m + log2(l)) ln 2, after the quad
+//      reduction of l; one lane of each quad stores it.
 //    What bounds this design below the bound: one thread issues the loads
 //    and the warpgroups themselves wait on them (no producer warp, no
 //    setmaxnreg), and in a warpgroup the softmax waits for S and the next
 //    S for P.V (no ping-pong between warpgroups); those are later work.
-// 2. float32 (any D of 16, 32, 64, 96, 128) and bfloat16 at D = 16, 32
-//    (only the .reduced() configs): flash_kernel, float32 FMAs on the CUDA
-//    cores.  D need not be a power of two, only a multiple of 16 (each
-//    thread's D / 16 accumulator columns; at D = 96 and BQ = 128 the tiles
-//    take 132,352 bytes of shared memory).  The D = 96 backward stays on
+// 2. float32 (any D of 16, 32, 64, 96, 112, 128) and bfloat16 at D = 16,
+//    32 (only the .reduced() configs): flash_kernel, float32 FMAs on the
+//    CUDA cores.  D need not be a power of two, only a multiple of 16 (each
+//    thread's D / 16 accumulator columns; at BQ = 128 the tiles take
+//    132,352 bytes of shared memory at D = 96, 148,736 at 112).  The
+//    backward has no D = 112 instance (the hybrid family is not trained on
+//    the card yet).  The D = 96 backward stays on
 //    the SIMT flash_bwd in both dtypes (flash_attention_bwd.cu) and takes
 //    its lse from whichever forward ran.  q, k and v are
 //    widened to float32 in shared memory and both
@@ -322,7 +328,8 @@ int launch(const Args& a) {
 
 
 // ---------------------------------------------------------------------
-// 1. the Hopper kernel (bf16 at D = 64, 96, 128): TMA, mbarriers, wgmma
+// 1. the Hopper kernel (bf16 at D = 64, 96, 112, 128): TMA, mbarriers,
+//    wgmma
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -517,6 +524,36 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
@@ -563,6 +600,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
+  else if constexpr (N == 112) wgmma_rs_n112(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
@@ -791,9 +829,9 @@ EncodeFn encoder() {
 }
 
 // a (B, S, H, D) contiguous bf16 tensor as a 4-D map (D, H, S, B), boxes
-// of 64 columns x `rows` rows of one head, 128-byte swizzle; at D = 96 the
-// box at column 64 is half outside the map: zeros on a load, clipped on a
-// store
+// of 64 columns x `rows` rows of one head, 128-byte swizzle; at D = 96 and
+// 112 the box at column 64 is partly outside the map: zeros on a load,
+// clipped on a store
 CUresult make_map(EncodeFn enc, CUtensorMap* map, const void* ptr, int B,
                   int S, int H, int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
@@ -855,6 +893,8 @@ int wgmma_by_tile(int blk_q, int blk_k, int D, const Args& a) {
   if (D == 64 && blk_k == 128) return launch_wgmma<64, 128>(a);
   if (D == 96 && blk_k == 64) return launch_wgmma<96, 64>(a);
   if (D == 96 && blk_k == 128) return launch_wgmma<96, 128>(a);
+  if (D == 112 && blk_k == 64) return launch_wgmma<112, 64>(a);
+  if (D == 112 && blk_k == 128) return launch_wgmma<112, 128>(a);
   if (D == 128 && blk_k == 64) return launch_wgmma<128, 64>(a);
   if (D == 128 && blk_k == 128) return launch_wgmma<128, 128>(a);
   return ERR_NOT_COMPILED;
@@ -870,6 +910,7 @@ int simt_by_head_dim(int D, const Args& a) {
     switch (D) {
       case 64: return launch<T, 64, BQ, BK>(a);
       case 96: return launch<T, 96, BQ, BK>(a);
+      case 112: return launch<T, 112, BQ, BK>(a);
       case 128: return launch<T, 128, BQ, BK>(a);
     }
   }
@@ -896,6 +937,8 @@ extern "C" int flash_wgmma_occupancy(int D, int blk_k, int* smem_bytes,
   if (D == 64 && blk_k == 128) return wgmma_occupancy<64, 128>(s, blocks);
   if (D == 96 && blk_k == 64) return wgmma_occupancy<96, 64>(s, blocks);
   if (D == 96 && blk_k == 128) return wgmma_occupancy<96, 128>(s, blocks);
+  if (D == 112 && blk_k == 64) return wgmma_occupancy<112, 64>(s, blocks);
+  if (D == 112 && blk_k == 128) return wgmma_occupancy<112, 128>(s, blocks);
   if (D == 128 && blk_k == 64) return wgmma_occupancy<128, 64>(s, blocks);
   if (D == 128 && blk_k == 128) return wgmma_occupancy<128, 128>(s, blocks);
   return ERR_NOT_COMPILED;
@@ -905,8 +948,8 @@ extern "C" int flash_wgmma_occupancy(int D, int blk_k, int* smem_bytes,
 // rows' log-sum-exp.  Returns cudaGetLastError() (0 on success), -1 for a
 // head dim, tile or dtype this file was not compiled for, -2 if libcuda.so.1
 // has no cuTensorMapEncodeTiled, 2000 + its CUresult if a tensor map was
-// refused.  bf16 at D = 64, 96 or 128 takes the wgmma kernel (blk_q = 128,
-// blk_k = 64 or 128), everything else the SIMT kernel (blk_q = 64 or 128,
+// refused.  bf16 at D = 64, 96, 112 or 128 takes the wgmma kernel (blk_q =
+// 128, blk_k = 64 or 128), everything else the SIMT kernel (blk_q = 64 or 128,
 // blk_k = 64).  The caller has checked shapes, contiguity, 16-byte
 // alignment, Sq % blk_q == 0, Sk % blk_k == 0 and Hq % Hkv == 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -919,7 +962,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const Args a{q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, scale,
                (cudaStream_t)stream};
   if (!is_bf16) return simt_by_tile<float>(blk_q, blk_k, D, a);
-  if (D == 64 || D == 96 || D == 128)
+  if (D == 64 || D == 96 || D == 112 || D == 128)
     return wgmma_by_tile(blk_q, blk_k, D, a);
   return simt_by_tile<__nv_bfloat16>(blk_q, blk_k, D, a);
 }

@@ -6,10 +6,11 @@ hand-written CUDA kernel for Hopper.
 (``csrc/flash_attention.cu``) is compiled with ``nvcc`` for ``sm_90a`` at
 first use into ``build/repro_torch/`` and bound with ``ctypes``; the source
 note says what bounds it.  It holds two kernels, and (dtype, D) alone picks
-one: bfloat16 at D = 64, 96 (phi-3-vision-4.2b) or 128 runs on the tensor
-cores (``wgmma`` fed by TMA, 128-row q tiles, K/V tiles of
-``WGMMA_TILES``, at D = 96 of ``WGMMA_TILES_96``); float32, and bfloat16
-at D = 16 or 32 (only the ``.reduced()`` configs), run the float32 SIMT
+one: bfloat16 at D = 64, 96 (phi-3-vision-4.2b), 112 (zamba2-7b's shared
+block) or 128 runs on the tensor cores (``wgmma`` fed by TMA, 128-row q
+tiles, K/V tiles of ``WGMMA_TILES``, at D = 96 and 112 of
+``WGMMA_TILES_96`` and ``WGMMA_TILES_112``); float32, and bfloat16 at
+D = 16 or 32 (only the ``.reduced()`` configs), run the float32 SIMT
 kernel (``SIMT_TILES``).  CUDA tensors launch a kernel, counted in
 ``flash_attention.launches``; CPU tensors take the plain version,
 ``attention_ref``.  Anything the kernel does not take raises, on either
@@ -22,8 +23,8 @@ o; its backward is ``flash_attention_bwd``: on CUDA tensors the
 hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a library of
 their own, built the same way; (dtype, D) picks the kernel: bfloat16 at
 D = 64 or 128 on the tensor cores, the rest the float32 SIMT one, bfloat16
-at D = 96 included, on the lse of the wgmma forward), counted in
-``flash_attention.bwd_launches``; on CPU
+at D = 96 included, on the lse of the wgmma forward; no kernel at D = 112,
+``BWD_HEAD_DIMS``), counted in ``flash_attention.bwd_launches``; on CPU
 tensors ``attention_bwd_ref``.  The JAX package has no backward kernel:
 XLA differentiates through its forward.  The backward is not
 differentiable again.
@@ -46,15 +47,18 @@ SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SRC = SRC.with_name("flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-HEAD_DIMS = (16, 32, 64, 96, 128)
-WGMMA_HEAD_DIMS = (64, 128, 96)  # bfloat16 at these runs the wgmma kernel
-BWD_WGMMA_HEAD_DIMS = (64, 128)  # and the wgmma backward at these
+HEAD_DIMS = (16, 32, 64, 96, 112, 128)
+WGMMA_HEAD_DIMS = (64, 96, 112, 128)  # bfloat16 at these: the wgmma kernel
+# the backward's head dims: D = 112 (zamba2-7b) waits for hybrid training
+BWD_HEAD_DIMS = (16, 32, 64, 96, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these: the wgmma backward
 # (blk_q, blk_k) each kernel is compiled for; the first is the default
 # (for the wgmma kernel the faster on the H100, the PERF.md kernel table:
-# BK = 128 at D = 64 and 128, BK = 64 at D = 96)
+# BK = 128 at D = 64 and 128, BK = 64 at D = 96 and 112)
 SIMT_TILES = ((64, 64), (128, 64))
 WGMMA_TILES = ((128, 128), (128, 64))
 WGMMA_TILES_96 = ((128, 64), (128, 128))
+WGMMA_TILES_112 = ((128, 64), (128, 128))
 DTYPES = (torch.float32, torch.bfloat16)
 # the backward's (q, k) tiles: Sq and Sk must be multiples of them; bf16 at
 # BWD_WGMMA_HEAD_DIMS runs the wgmma kernel (64 q rows, 128 keys a block)
@@ -66,7 +70,7 @@ def tiles(dtype: torch.dtype, D: int) -> tuple[tuple[int, int], ...]:
     """The tiles of the kernel that (dtype, D) runs; the first is the
     default."""
     if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
-        return WGMMA_TILES_96 if D == 96 else WGMMA_TILES
+        return {96: WGMMA_TILES_96, 112: WGMMA_TILES_112}.get(D, WGMMA_TILES)
     return SIMT_TILES
 
 
@@ -117,7 +121,7 @@ def _check(q, k, v, blk_q: int | None,
            blk_k: int | None) -> tuple[int, int]:
     """Raises on what the kernel does not take; returns the tile, the
     default of ``tiles(dtype, D)`` where ``blk_q`` or ``blk_k`` is None.
-    The wgmma kernel (bfloat16 at D = 64, 96, 128) also needs 16-byte
+    The wgmma kernel (bfloat16 at D = 64, 96, 112, 128) also needs 16-byte
     aligned CUDA tensors for its TMA loads; bfloat16 at D = 16, 32 stays on
     the SIMT kernel."""
     if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
@@ -273,9 +277,13 @@ def _check_bwd(q, k, v, o, do, lse) -> None:
                          f"{[tuple(t.shape) for t in ts]}")
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
-    if Bk != B or Dk != D or D not in HEAD_DIMS or Hkv == 0 or Hq % Hkv:
+    if D in HEAD_DIMS and D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: no backward kernel at head "
+                         f"dim {D} yet: it comes with the hybrid family's "
+                         "training (ROADMAP.md, queue 1 item 7)")
+    if Bk != B or Dk != D or D not in BWD_HEAD_DIMS or Hkv == 0 or Hq % Hkv:
         raise ValueError("flash_attention_bwd: needs one batch and head dim "
-                         f"in {HEAD_DIMS} and Hq a multiple of Hkv, got "
+                         f"in {BWD_HEAD_DIMS} and Hq a multiple of Hkv, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     bq, bk = bwd_tile(q.dtype, D)
     if Sq % bq or Sk % bk:
@@ -297,7 +305,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sk, Hkv, D), o the forward's output, do the gradient of the loss
     with respect to it and lse the forward's row log-sum-exp (float32,
     (B, Hq, Sq)) -> (dq, dk, dv) in the inputs' dtypes.  float32 or
-    bfloat16, D in ``HEAD_DIMS``, Sq and Sk multiples of ``bwd_tile(dtype,
+    bfloat16, D in ``BWD_HEAD_DIMS``, Sq and Sk multiples of ``bwd_tile(dtype,
     D)``.  CUDA tensors launch the kernels (delta, then the gradients;
     counted once in ``flash_attention.bwd_launches``) and need lse; CPU
     tensors take ``attention_bwd_ref``, which computes lse where it is

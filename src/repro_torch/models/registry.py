@@ -1,5 +1,5 @@
-"""Family dispatch: one API over the ported decoder families, dense and
-ssm (RWKV-6).
+"""Family dispatch: one API over the ported decoder families, dense, ssm
+(RWKV-6) and hybrid (Zamba2: Mamba-2 layers and a shared attention block).
 
     specs(cfg)                                 -> ParamSpec tree
     loss_fn(params, batch, cfg)                -> scalar
@@ -8,8 +8,9 @@ ssm (RWKV-6).
 
 Batch values that are tensors run where they lie; anything else (numpy
 arrays, lists) goes to ``device``, ``cuda`` unless the caller names another.
-A cache (a KV dict, or the RWKV-6 ((state, carries), counter) tuple) is
-made by ``prefill`` on the batch's device and stays there.
+A cache (a KV dict, the RWKV-6 ((state, carries), counter) tuple, or the
+hybrid ((Mamba-2 state, conv state), KV dict) tuple) is made by
+``prefill`` on the batch's device and stays there.
 """
 from __future__ import annotations
 

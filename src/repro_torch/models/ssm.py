@@ -1,5 +1,5 @@
-"""Linear-recurrence blocks: the RWKV-6 (Finch) half of the JAX package's
-``models/ssm.py``, on one chunked linear-attention core.
+"""Linear-recurrence blocks: RWKV-6 (Finch) and Mamba-2 (SSD), the JAX
+package's ``models/ssm.py``, on one chunked linear-attention core.
 
 Recurrence (per head, state S in R^{K x V}):
 
@@ -11,16 +11,14 @@ Recurrence (per head, state S in R^{K x V}):
 term against the carried state and an intra-chunk decay-weighted attention
 matrix, a Python loop over the T/c chunks.  It is the plain version of the
 ``linear_scan`` kernel (``kernels/linear_scan/ref.py``).  ``rwkv6_time_mix``
-reaches the chunked form through ``kernels.linear_scan.ops.scan_op``, which
-launches the hand-written kernel on CUDA tensors; the JAX package's model
-calls ``chunked_linear_attn`` directly and never takes its Pallas kernel.
+and ``mamba2_block`` reach the chunked form through
+``kernels.linear_scan.ops.scan_op``, which launches the hand-written kernel
+on CUDA tensors; the JAX package's models call ``chunked_linear_attn``
+directly and never take its Pallas kernel.
 
 Per-step log-decays are clamped at -60/chunk: contributions below e^-60
 are exactly 0 in float32, and the clamp keeps the two-sided exp
 factorisation inside float32 range.
-
-The Mamba-2 half (``mamba2_specs``, ``_causal_conv``, ``mamba2_block``)
-comes with the hybrid family (ROADMAP, queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -194,3 +192,86 @@ def rwkv6_channel_mix(p, x, x_prev, cfg: ModelConfig, decode=False):
     y = _mm(h, p["cm_v"]) * torch.sigmoid(
         _mm(xr, p["cm_r"]).float()).to(x.dtype)
     return y, carry
+
+
+# ----------------------------------------------------------------------
+# Mamba-2 block
+# ----------------------------------------------------------------------
+
+def mamba2_specs(cfg: ModelConfig, stacked: int) -> dict:
+    d = cfg.d_model
+    di = d * cfg.ssm_expand
+    N, H = cfg.ssm_state, cfg.ssm_heads
+    conv_ch = di + 2 * N
+    L, lx = (stacked,), ("layers",)
+
+    def mat(shape, axes, **kw):
+        return ParamSpec(L + shape, lx + axes, **kw)
+    return {
+        # separate projections (z / x+B+C / dt), as in the JAX package,
+        # whose widths each divide its tensor-parallel axis
+        "w_z": mat((d, di), ("embed", "mlp")),
+        "w_xbc": mat((d, conv_ch), ("embed", "mlp")),
+        "w_dt": mat((d, H), ("embed", "heads_flat")),
+        "conv_w": mat((cfg.conv_width, conv_ch), (None, "mlp"),
+                      scale=cfg.conv_width ** -0.5),
+        "conv_b": mat((conv_ch,), ("mlp",), init="zeros"),
+        "a_log": mat((H,), ("heads_flat",), init="zeros"),
+        "dt_bias": mat((H,), ("heads_flat",), init="zeros"),
+        "d_skip": mat((H,), ("heads_flat",), init="ones"),
+        "norm_scale": mat((di,), ("mlp",), init="ones"),
+        "out_proj": mat((di, d), ("mlp", "embed")),
+    }
+
+
+def _causal_conv(x, w, b, state=None):
+    """x: (B, T, C), w: (W, C) depthwise.  state: (B, W-1, C) carry.
+    Returns (y, new_state); the taps are summed in the JAX package's
+    order."""
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(W))
+    new_state = xp[:, -(W - 1):] if W > 1 else state
+    return y + b, new_state
+
+
+def mamba2_block(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
+                 decode=False):
+    """Returns (y, (ssm_state, conv_state)).  The SSD recurrence is the
+    post-update linear scan with r = C_t and k = B_t broadcast over the H
+    heads, log_w = dt * a broadcast over the state width N and v = x * dt;
+    state (B, H, N, P) float32."""
+    from ..kernels.linear_scan.ops import scan_op  # kernels import models
+    B, T, d = x.shape
+    di = d * cfg.ssm_expand
+    N, H = cfg.ssm_state, cfg.ssm_heads
+    P = di // H
+    z = _mm(x, p["w_z"])
+    xbc = _mm(x, p["w_xbc"])
+    dt = _mm(x, p["w_dt"])
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    xs, Bt, Ct = torch.split(xbc, [di, N, N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())        # (B, T, H)
+    a = -torch.exp(p["a_log"].float())                       # (H,)
+    log_w = (dt * a)[..., None].expand(B, T, H, N)
+    xh = xs.reshape(B, T, H, P).float()
+    v = xh * dt[..., None]                                   # dt * x
+    r = Ct[:, :, None, :].expand(B, T, H, N)
+    k = Bt[:, :, None, :].expand(B, T, H, N)
+
+    if decode:
+        o, state = linear_attn_step(r[:, 0], k[:, 0], v[:, 0], log_w[:, 0],
+                                    state=state, post_update=True)
+        o = o[:, None]
+    else:
+        o, state = scan_op(r.float(), k.float(), v, log_w, state0=state,
+                           chunk=cfg.chunk_size, post_update=True)
+    y = o + xh * p["d_skip"].float()[:, None]
+    y = y.reshape(B, T, di) * F.silu(z.float())
+    y = y * torch.rsqrt(torch.mean(y * y, -1, keepdim=True) + 1e-6)
+    y = (y * p["norm_scale"].float()).to(x.dtype)
+    return _mm(y, p["out_proj"]), (state, conv_state)

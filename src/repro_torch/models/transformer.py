@@ -1,4 +1,5 @@
-"""Decoder-LM assembly for the dense and ssm (RWKV-6) families.
+"""Decoder-LM assembly for the dense, ssm (RWKV-6) and hybrid (Zamba2)
+families.
 
 One spec builder and three entry points:
 
@@ -9,10 +10,15 @@ One spec builder and three entry points:
 Layer weights are stacked on a leading ``L`` axis, as in the JAX package;
 each layer stack is a Python loop over the layers (``torch.unbind`` of
 the stacks, whose gradient is one stack of the per-layer gradients) that
-stacks the new per-layer caches (KV caches, or RWKV-6 recurrent states)
-back to ``(L, ...)``.  Under grad, outside decode, each block is
-rematerialised as ``cfg.remat`` says (``_maybe_remat``).  The moe and
-hybrid families are not ported yet (ROADMAP, queue 1 item 7).
+stacks the new per-layer caches (KV caches, or recurrent states) back to
+``(L, ...)``.  Under grad, outside decode, each block is rematerialised as
+``cfg.remat`` says (``_maybe_remat``).
+
+The hybrid family interleaves the Mamba-2 layers with one *shared*
+attention block applied every ``cfg.attn_every`` layers: the shared
+block's weights are the same at every application, its KV cache is
+indexed by application number.  The moe family is not ported yet
+(ROADMAP, queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -28,8 +34,8 @@ from .param import ParamSpec, SpecTree
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family == "dense" or (cfg.family == "ssm"
-                                 and cfg.ssm_type == "rwkv6"):
+    if cfg.family == "dense" or (cfg.family, cfg.ssm_type) in (
+            ("ssm", "rwkv6"), ("hybrid", "mamba2")):
         return
     raise NotImplementedError(
         f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
@@ -60,6 +66,9 @@ def lm_specs(cfg: ModelConfig) -> SpecTree:
         block = dict(ssm.rwkv6_specs(cfg, L))
         block["tm_norm"] = norm_specs(cfg, L)
         block["cm_norm"] = norm_specs(cfg, L)
+    elif cfg.family == "hybrid":
+        block = dict(ssm.mamba2_specs(cfg, L))
+        block["norm"] = norm_specs(cfg, L)
     else:
         block = {"attn": attention_specs(cfg, L)}
         an = norm_specs(cfg, L)
@@ -68,7 +77,16 @@ def lm_specs(cfg: ModelConfig) -> SpecTree:
             block["mlp_norm"] = norm_specs(cfg, L)
         block["mlp"] = mlp_specs(cfg, L)
     specs["blocks"] = block
+    if cfg.family == "hybrid":
+        specs["shared"] = {"attn": attention_specs(cfg),
+                           "attn_norm": norm_specs(cfg),
+                           "mlp_norm": norm_specs(cfg),
+                           "mlp": mlp_specs(cfg)}
     return specs
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
 
 
 # ----------------------------------------------------------------------
@@ -93,6 +111,24 @@ def _rwkv_block(pl, x, state_l, cfg: ModelConfig, decode: bool):
     h = apply_norm(pl["cm_norm"], x, cfg)
     y, cm2 = ssm.rwkv6_channel_mix(pl, h, cm_carry, cfg, decode=decode)
     return x + y, (st2, tm2, cm2)
+
+
+def _mamba_block(pl, x, state_l, cfg: ModelConfig, decode: bool):
+    st, conv = state_l
+    h = apply_norm(pl["norm"], x, cfg)
+    y, (st2, conv2) = ssm.mamba2_block(pl, h, cfg, state=st,
+                                       conv_state=conv, decode=decode)
+    return x + y, (st2, conv2)
+
+
+def _shared_attn_block(ps, x, positions, cache_app, cfg: ModelConfig,
+                       decode: bool):
+    h = apply_norm(ps["attn_norm"], x, cfg)
+    a, new_cache = attention(ps["attn"], h, cfg, positions=positions,
+                             cache=cache_app, decode=decode)
+    x = x + a
+    h = apply_norm(ps["mlp_norm"], x, cfg)
+    return x + apply_mlp(ps["mlp"], h, cfg), new_cache
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -160,6 +196,53 @@ def _stack_rwkv(params, x, state, cfg: ModelConfig, decode: bool):
     return x, tuple(torch.stack(s) for s in zip(*new))
 
 
+def _hybrid_group(layers, shared, x, positions, states, cache_g,
+                  cfg: ModelConfig, decode: bool):
+    """``attn_every`` Mamba-2 layers, then one application of the shared
+    block on its own KV cache (None for the full-sequence forward) ->
+    (x, the layers' new states, the new cache)."""
+    new = []
+    for pl, state_l in zip(layers, states):
+        x, state_l = _mamba_block(pl, x, state_l, cfg, decode)
+        new.append(state_l)
+    x, cache_g = _shared_attn_block(shared, x, positions, cache_g, cfg,
+                                    decode)
+    return x, new, cache_g
+
+
+def _stack_hybrid(params, x, positions, state, cfg: ModelConfig,
+                  decode: bool):
+    """``state`` is ((st (L,B,H,N,P), conv (L,B,W-1,C)), attention cache
+    of ``n_attn_apps`` entries or None).  G groups of ``attn_every`` Mamba-2
+    layers and one shared-block application each, then the tail of the
+    leftover layers; each group and each tail layer is rematerialised as
+    the JAX package's scans are.  Returns x and the new state, the Mamba-2
+    states stacked back to (L, ...) in layer order."""
+    every, G = cfg.attn_every, n_attn_apps(cfg)
+    (st, conv), attn_cache = state
+    n_layers = st.shape[0]
+    layers = _unstack(params["blocks"], n_layers)
+    states = list(zip(torch.unbind(st), torch.unbind(conv)))
+    caches = [None] * G if attn_cache is None else _unstack(attn_cache, G)
+    group = _maybe_remat(_hybrid_group, cfg, decode)
+    new, new_caches = [], []
+    for g in range(G):
+        sl = slice(g * every, (g + 1) * every)
+        x, new_g, cache_g = group(layers[sl], params["shared"], x, positions,
+                                  states[sl], caches[g], cfg, decode)
+        new += new_g
+        new_caches.append(cache_g)
+    block = _maybe_remat(_mamba_block, cfg, decode)
+    for pl, state_l in zip(layers[G * every:], states[G * every:]):
+        x, state_l = block(pl, x, state_l, cfg, decode)
+        new.append(state_l)
+    mamba = tuple(torch.stack(s) for s in zip(*new))
+    if attn_cache is None:
+        return x, (mamba, None)
+    return x, (mamba, {k: torch.stack([c[k] for c in new_caches])
+                       for k in new_caches[0]})
+
+
 # ----------------------------------------------------------------------
 # Embedding of (tokens [+ frontend]) into the sequence
 # ----------------------------------------------------------------------
@@ -203,6 +286,8 @@ def forward(params, batch, cfg: ModelConfig, cache=None, decode=False):
         state, counter = cache
         x, state = _stack_rwkv(params, x, state, cfg, decode)
         cache = (state, counter + x.shape[1])
+    elif cfg.family == "hybrid":
+        x, cache = _stack_hybrid(params, x, positions, cache, cfg, decode)
     else:
         x, cache = _stack_dense(params, x, positions, cache, cfg, decode)
     if "final_norm" in params:
@@ -239,6 +324,8 @@ def _cache_length(cache, cfg: ModelConfig):
     _require_ported(cfg)
     if cfg.family == "ssm":
         return cache[1]  # rwkv: explicit token counter
+    if cfg.family == "hybrid":
+        return cache[1]["length"][0]
     return cache["length"][0]
 
 
@@ -247,7 +334,9 @@ def empty_cache(params, batch, cfg: ModelConfig, *, train: bool,
     """Zero cache on the batch's device.  Dense: a KV cache of ``max_len``
     positions, none for the full-sequence forward (``train``, no KV
     retention).  ssm: the zero recurrent state ((st, tm carry, cm carry),
-    token counter), the same for both."""
+    token counter), the same for both.  hybrid: ((the float32 Mamba-2
+    state, the conv state), the shared block's KV cache of one entry an
+    application, None for ``train``)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, L, dev = tokens.shape[0], cfg.n_layers, tokens.device
@@ -258,6 +347,18 @@ def empty_cache(params, batch, cfg: ModelConfig, *, train: bool,
                             device=dev)
         return ((st, carry, carry),
                 torch.zeros((), dtype=torch.int32, device=dev))
+    if cfg.family == "hybrid":
+        H, N = cfg.ssm_heads, cfg.ssm_state
+        di = cfg.d_model * cfg.ssm_expand
+        st = torch.zeros((L, B, H, N, di // H), dtype=torch.float32,
+                         device=dev)
+        conv = torch.zeros((L, B, cfg.conv_width - 1, di + 2 * N),
+                           dtype=cfg.dtype, device=dev)
+        if train:
+            return ((st, conv), None)
+        return ((st, conv), make_kv_cache(
+            cfg, B, max(max_len, 1), n_layers=max(1, n_attn_apps(cfg)),
+            dtype=cfg.dtype, device=dev))
     if train:
         return None
     return make_kv_cache(cfg, B, max_len, n_layers=L, dtype=cfg.dtype,

@@ -207,6 +207,7 @@ FLASH_SHAPES = [  # tests/test_kernels.py:19-28
     (2, 128, 128, 2, 2, 64, False),    # bidirectional (encoder)
     (1, 512, 512, 2, 2, 64, True),     # multiple k blocks
     (1, 256, 256, 4, 2, 96, True),     # phi-3-vision-4.2b's head dim
+    (1, 256, 256, 4, 2, 112, True),    # zamba2-7b's shared block's
 ]
 # float32 sums in another order (2e-6); bf16 outputs round to 8 mantissa
 # bits (2e-2): tests/test_kernels.py's tolerances
@@ -266,7 +267,7 @@ def test_flash_kernel_independent_of_tile(cuda):
 
 
 @pytest.mark.parametrize("shape", [s for s in FLASH_SHAPES
-                                   if s[5] in (64, 128)], ids=str)
+                                   if s[5] in (64, 112, 128)], ids=str)
 def test_flash_wgmma_kernel_independent_of_tile(cuda, shape):
     """BK = 64 and 128 round P to bf16 against other running maxima; the
     outputs agree within one bf16 ulp at the scale of each output row (the
@@ -416,19 +417,17 @@ def test_flash_forward_writes_lse(cuda, no_tf32, shape, dtype):
                                               blk_q=blk_q, blk_k=blk_k))
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
-def test_flash_wgmma_forward_at_head_dim_96(cuda, no_tf32, causal):
-    """bf16 at D = 96 on the wgmma kernel (its second 64-column box half
-    outside the tensor: zeros on a load, clipped on a store) at both tiles,
-    GQA 6 over 2, Sq = 256 against Sk = 320 (a multiple of 64, not of 128:
-    BK = 128 refuses it and runs at Sk = 256): o within bf16's tolerance of
-    attention_ref, lse within LSE_TOL, one launch a call."""
-    q, k, v = _qkv(2, 256, 320, 6, 2, 96, torch.bfloat16, cuda, seed=9)
-    assert tiles(torch.bfloat16, 96) == ((128, 64), (128, 128))
+def _wgmma_forward_at_other_lengths(D, causal, device):
+    """bf16 at D on the wgmma kernel at both tiles, GQA 6 over 2, Sq = 256
+    against Sk = 320 (a multiple of 64, not of 128: BK = 128 refuses it
+    and runs at Sk = 256): o within bf16's tolerance of attention_ref, lse
+    within LSE_TOL, one launch a call."""
+    q, k, v = _qkv(2, 256, 320, 6, 2, D, torch.bfloat16, device, seed=9)
+    assert tiles(torch.bfloat16, D) == ((128, 64), (128, 128))
     with pytest.raises(ValueError, match="multiples of the tiles"):
         flash_attention(q, k, v, causal=causal, blk_q=128, blk_k=128)
     tol = FLASH_TOL[torch.bfloat16]
-    for blk_q, blk_k in tiles(torch.bfloat16, 96):
+    for blk_q, blk_k in tiles(torch.bfloat16, D):
         sk = 320 if 320 % blk_k == 0 else 256
         kk, vv = k[:, :sk].contiguous(), v[:, :sk].contiguous()
         want, want_lse = attention_ref(q, kk, vv, causal=causal,
@@ -444,7 +443,34 @@ def test_flash_wgmma_forward_at_head_dim_96(cuda, no_tf32, causal):
         torch.testing.assert_close(lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL)
 
 
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_flash_wgmma_forward_at_head_dim_96(cuda, no_tf32, causal):
+    """D = 96: the second 64-column box half outside the tensor (zeros on
+    a load, clipped on a store), P.V as m64n96k16."""
+    _wgmma_forward_at_other_lengths(96, causal, cuda)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_flash_wgmma_forward_at_head_dim_112(cuda, no_tf32, causal):
+    """D = 112 (zamba2-7b): the second box three quarters inside the
+    tensor, P.V as m64n112k16 reading six of the eight 16-byte chunks of
+    V's second swizzle atom."""
+    _wgmma_forward_at_other_lengths(112, causal, cuda)
+
+
+def test_flash_backward_refuses_head_dim_112(cuda):
+    """The backward has no kernel at D = 112 yet: a CUDA call raises and
+    names the queue item (hybrid training), launching nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = _qkv(1, 128, 128, 2, 2, 112, torch.bfloat16, cuda)
+    o, lse = flash_attention_with_lse(q, k, v)
+    before = flash_attention.bwd_launches
+    with pytest.raises(ValueError, match="head dim 112.*ROADMAP.*item 7"):
+        flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse=lse)
+    assert flash_attention.bwd_launches == before
+
+
+@pytest.mark.parametrize("D", [64, 96, 112, 128])
 def test_flash_wgmma_occupancy_is_counted(cuda, D):
     """Every wgmma instance answers the occupancy query: the shared bytes
     of its tiles (two q boxes and a two-stage K/V ring, 64-column boxes
@@ -603,6 +629,34 @@ def test_rwkv_forward_launches_linear_scan_once_per_layer(cuda):
     assert np.isfinite(float(loss))
     assert mid == before + 2 * cfg.n_layers
     assert linear_scan.launches == mid  # decode runs the per-token step
+
+
+def test_hybrid_forward_launches_its_kernels(cuda):
+    """Reduced zamba2-7b (4 Mamba-2 layers, the shared block twice) at
+    S = 128: the full-sequence forward launches linear_scan once a layer
+    and flash_attention once a shared-block application; the prefill the
+    scan alone (its attention fills the cache on the plain path); decode
+    neither."""
+    from repro_torch.models.transformer import n_attn_apps
+    cfg = REGISTRY["zamba2-7b"].reduced()
+    params = init_params(registry.specs(cfg), 0, cuda)
+    toks = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+
+    def counts():
+        return np.array([linear_scan.launches, flash_attention.launches])
+    with torch.no_grad():
+        c0 = counts()
+        loss = registry.loss_fn(params, {"tokens": toks, "labels": toks},
+                                cfg)
+        c1 = counts()
+        _, cache = registry.prefill(params, {"tokens": toks}, cfg, 136)
+        c2 = counts()
+        registry.decode_step(params, {"tokens": toks[:, :1]}, cache, cfg)
+        c3 = counts()
+    assert np.isfinite(float(loss))
+    assert list(c1 - c0) == [cfg.n_layers, n_attn_apps(cfg)]
+    assert list(c2 - c1) == [cfg.n_layers, 0]
+    assert list(c3 - c2) == [0, 0]
 
 
 # ----------------------------------------------------------------------

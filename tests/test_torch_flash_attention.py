@@ -17,7 +17,7 @@ from repro.kernels.flash_attention import \
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention, attention_ref, flash_attention)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    SIMT_TILES, WGMMA_TILES, WGMMA_TILES_96, tiles)
+    SIMT_TILES, WGMMA_TILES, WGMMA_TILES_96, WGMMA_TILES_112, tiles)
 
 SHAPES = [  # tests/test_kernels.py:19-28
     (1, 128, 128, 2, 2, 64, True),
@@ -203,19 +203,20 @@ def test_bf16_p_arithmetic_independent_of_blk_k(B, Sq, Sk, Hq, Hkv, D,
     (torch.bfloat16, 32, SIMT_TILES), (torch.bfloat16, 16, SIMT_TILES),
     (torch.float32, 128, SIMT_TILES), (torch.float32, 64, SIMT_TILES),
     (torch.float32, 16, SIMT_TILES), (torch.bfloat16, 96, WGMMA_TILES_96),
-    (torch.float32, 96, SIMT_TILES)])
+    (torch.float32, 96, SIMT_TILES), (torch.bfloat16, 112, WGMMA_TILES_112),
+    (torch.float32, 112, SIMT_TILES)])
 def test_tiles_follow_dtype_and_head_dim(dtype, D, want):
-    """(dtype, D) alone picks the kernel: bf16 at D = 64, 96, 128 the
-    wgmma kernel (128-row q tiles; BK = 128 first, at D = 96 BK = 64
-    first), everything else the SIMT kernel."""
+    """(dtype, D) alone picks the kernel: bf16 at D = 64, 96, 112, 128 the
+    wgmma kernel (128-row q tiles; BK = 128 first, at D = 96 and 112
+    BK = 64 first), everything else the SIMT kernel."""
     assert tiles(dtype, D) is want
     assert all(bq == 128 and bk in (64, 128) for bq, bk in WGMMA_TILES)
-    assert WGMMA_TILES_96 == WGMMA_TILES[::-1]
+    assert WGMMA_TILES_96 == WGMMA_TILES_112 == WGMMA_TILES[::-1]
     assert (64, 64) in SIMT_TILES
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 96, 112, 128])
 def test_wrapper_takes_the_tiles_of_its_kernel(dtype, D):
     _, (q, k, v) = _both(_inputs(1, 256, 256, 4, 2, D, seed=2), dtype)
     want = attention_ref(q, k, v)
@@ -250,3 +251,36 @@ def test_wrapper_at_head_dim_96_matches_pallas_interpret(dtype):
                      interpret=True)
     np.testing.assert_allclose(_f32(got), _f32(kernel), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_at_head_dim_112_matches_pallas_interpret(dtype, causal):
+    """zamba2-7b's shared block (3584 / 32 = 112, a multiple of 16 but not
+    of 32): the plain version and the wrapper (on CPU tensors the plain
+    version, on the wgmma kernel's tiles in bf16 and the SIMT kernel's in
+    float32) against the Pallas kernel in interpret mode, GQA 6 over 2,
+    two q and K/V tiles."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(1, 256, 256, 6, 2, 112,
+                                               seed=4), dtype)
+    want = _f32(j_flash(jq, jk, jv, causal=causal, blk_q=128, blk_k=128,
+                        interpret=True))
+    tol = TOL[dtype]
+    for got in (attention_ref(tq, tk, tv, causal=causal),
+                flash_attention(tq, tk, tv, causal=causal)):
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        np.testing.assert_allclose(_f32(got), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("blk_k", [64, 128])
+def test_bf16_p_arithmetic_at_head_dim_112(blk_k):
+    """The wgmma kernel's arithmetic (P rounded to bf16) at D = 112 and
+    both of its K/V tiles stays inside the bf16 tolerance of the Pallas
+    kernel."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, 256, 256, 4, 4, 112,
+                                               seed=5), "bfloat16")
+    got = _online_bf16_p(tq, tk, tv, True, blk_k)
+    kernel = j_flash(jq, jk, jv, causal=True, blk_q=128, blk_k=128,
+                     interpret=True)
+    tol = TOL["bfloat16"]
+    np.testing.assert_allclose(_f32(got), _f32(kernel), atol=tol, rtol=tol)

@@ -142,6 +142,19 @@ def test_bwd_checks_its_inputs():
     assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bwd_refuses_head_dim_112(dtype):
+    """The forward takes D = 112 (zamba2-7b's shared block); the backward
+    does not yet, on either device, and its error names the queue item
+    that brings it (hybrid training)."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs(1, 128, 128, 2, 2, 112))
+    o = attention_ref(q, k, v)
+    with pytest.raises(ValueError, match="head dim 112.*ROADMAP.*item 7"):
+        flash_attention_bwd(q, k, v, o, do)
+
+
 # ----------------------------------------------------------------------
 # lse from the forward, delta
 # ----------------------------------------------------------------------

@@ -128,10 +128,12 @@ def test_dense_specs_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", sorted(
-    a for a in ARCHS if J_REGISTRY[a].family not in ("dense", "ssm")))
+    a for a in ARCHS
+    if J_REGISTRY[a].family not in ("dense", "ssm", "hybrid")))
 def test_other_families_are_not_ported_yet(arch):
-    """moe, hybrid and encdec; the ssm family (rwkv6-1.6b) is ported and
-    held against the reference in tests/test_torch_ssm.py."""
+    """moe and encdec; the ssm family (rwkv6-1.6b) and the hybrid one
+    (zamba2-7b) are ported and held against the reference in
+    tests/test_torch_ssm.py and tests/test_torch_hybrid.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.specs(REGISTRY[arch].reduced())
 
