@@ -14,12 +14,12 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    (one ``nvcc`` each, all at once) and print the build seconds and ptxas
    registers and spills (by kernel for the flash kernels at D = 96 and
    112 and the linear_scan backward); the wgmma flash backward, the wgmma
-   flash forward at D = 96 and 112 and the scan backward's gradient pass
-   must spill nothing; ``cuobjdump -sass`` of the flash forward library and
-   of the flash backward library must each show HGMMA (wgmma on the tensor
-   cores) and UTMALDG (TMA loads), and of the scan backward HMMA (its 3xTF32
-   mma.sync); the gradient pass's shared bytes and blocks an SM printed
-   (two required);
+   flash forward at D = 96 and 112, the SIMT flash backward at D = 112 and
+   the scan backward's gradient pass must spill nothing; ``cuobjdump
+   -sass`` of the flash forward library and of the flash backward library
+   must each show HGMMA (wgmma on the tensor cores) and UTMALDG (TMA
+   loads), and of the scan backward HMMA (its 3xTF32 mma.sync); the
+   gradient pass's shared bytes and blocks an SM printed (two required);
 2. the kernel against its plain PyTorch version on the card, for all 32
    VGG16 × {C-P, X-P} tables: pes 1..16384 × bw {1, 2, 3.5, 8, 64, 128} plus
    4096 random designs each, rtol 1e-6 on all five columns; runtime and macs
@@ -116,6 +116,22 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    the bound; the scan at its shape (B=2, T=2048,
    H=112, K=V=64, post-update, c=256) against ``linear_scan_ref`` (1e-3)
    and timed;
+7d. the moe family: moonshot-v1-16b-a3b at full width and depth (48
+   layers, d_model 2048, 16/16 heads of 128, 64 experts of d_ff 1408,
+   top-6, 2 shared experts, vocab 163840; bf16, seed 0; 28.9e9 parameters,
+   each expert stack drawn a layer at a time): ``loss_fn`` at B=2, S=2048
+   (finite, within 1.0 of ln(vocab), exactly 48 ``flash_attention``
+   launches and no other kernel), timed, peak memory; the
+   ``attention_ref`` route in bf16 (loss within 1e-3; the (token, slot)
+   routing choices that differ between the routes counted); ``ServeEngine``,
+   4 slots, 6 requests of 128-512 tokens x 32 new (no kernel launch in the
+   run); the profile; then, the bf16 weights freed, a float32 copy of its
+   first 4 layers on both routes (loss 1e-4, last logits 1e-3 rel L2,
+   argmax equal); dbrx-132b at full width and 2 of its 40 layers (48/8
+   heads, 16 experts of d_ff 10752, top-4; 7.75e9 parameters): ``loss_fn``
+   (2 launches) and its bf16 ``attention_ref`` route (1e-3); the flash
+   kernel at moonshot's shape, at each tile, against ``attention_ref`` and
+   timed beside SDPA and the bound;
 8. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
    6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
    then prefill-then-decode against the full-sequence forward on one
@@ -139,8 +155,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    then the ``linear_scan`` backward (``linear_scan_bwd`` on the forward
    kernel's states) against ``linear_scan_bwd_ref`` at rwkv6's train
    shape, ``HANDOFF_SCAN`` (state0 and dS_T given), zamba2's post-update
-   scan and ragged shapes (T = c, c = 37, c = 256 with K < 64 and V > 64,
-   c = 48; state0 and dS_T given; float32 and bf16), every 13th log_w
+   scan at its train steps' B = 2 and ragged shapes (T = c, c = 37,
+   c = 256 with K < 64 and V > 64, c = 48; state0 and dS_T given; float32
+   and bf16), every 13th log_w
    below the -60/c clamp: each gradient's rel L2 within 1e-3 of the
    float32 plain version and within max(1e-5, 2x the plain version's own)
    of a float64 backward, bf16 inputs within 1e-2 of the float32 formulas;
@@ -165,8 +182,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    and lse from the forward kernel, its lse held against the plain one;
    rel L2 of dq, dk, dv within 1e-5 in float32 and 2e-2 in bf16, bf16 also
    against the float32 formulas with the float32 o) at ragged small shapes
-   and olmo-1b's and llama3-8b's (bf16 at D = 64, 128 on the wgmma
-   backward, the rest on the SIMT one); olmo-1b
+   and olmo-1b's, llama3-8b's and zamba2-7b's train shapes (bf16 at D =
+   64, 128 on the wgmma backward, the rest on the SIMT one, D = 112 at 6/2
+   heads and both masks and at zamba2-7b's 32/32 heads included); olmo-1b
    at full width and depth (16 layers, d_model 2048, vocab 50304, bf16,
    seed 0) trains 3 steps at B=2, S=2048 through ``make_train_step`` and
    ``FaultTolerantLoop`` (checkpoints off at this size): finite loss and
@@ -199,16 +217,27 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    -60/c clamp and the decay leaves' gradients are not 0: held, and
    counted, under the same rule as the other leaves; then
    ``python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 2`` on
-   the card (reduced); last, the ``linear_scan`` backward timed at rwkv6's
-   shape (the call, each pass, by device time) beside its plain version
-   and the bound.
+   the card (reduced); then zamba2-7b at full width and 27 of its 81
+   layers (4 groups of 6 Mamba-2 layers and the shared block, then 3 tail
+   layers; 2.54e9 parameters) trains the same way: 3 steps, 8 forward and
+   4 backward flash launches at D = 112 and 54 forward and 27 backward
+   ``linear_scan`` launches a step; one step's gradients against
+   ``attention_ref`` and ``linear_scan_ref`` together under autograd in
+   bf16 (loss 1e-3, grad_norm 1e-2) and on a float32 copy of the trained
+   params' first 9 layers (loss 1e-5, grad_norm 1e-4, every leaf printed
+   and held to 1e-4 rel L2 but a_log, w_dt and dt_bias, which swing with
+   float32 rounding noise), whose leaves are then held against the route
+   whose scan is float64 as rwkv6's are; the D = 112 backward timed at its train steps' shape
+   beside its plain version, SDPA's backward and the bound; last, the
+   ``linear_scan`` backward timed at rwkv6's shape (the call, each pass,
+   by device time) beside its plain version and the bound.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
 door, the network search and the serving tier, which must launch none;
-one ``loss_fn`` forward of each model (both counts for zamba2-7b); each
-serving run; the olmo-1b and the rwkv6-1.6b train steps) and read just
-after it.
+one ``loss_fn`` forward of each model (both counts for zamba2-7b, every
+count for the moe models); each serving run; the olmo-1b, rwkv6-1.6b and
+zamba2-7b train steps) and read just after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
@@ -267,6 +296,21 @@ ZAMBA2_DECODE_S = 8
 # below -0.47, so the prefill and the step run other recurrences; the
 # float32 check at ZAMBA2_DECODE_S, where no clamp binds, holds 1e-3
 ZAMBA2_BF16_DECODE = 1.13
+# zamba2-7b trains at full width and 27 layers (4 groups of 6 with the
+# shared block after each, then the tail of 3): its train state at full
+# depth (6.75e9 parameters, ~16 bytes each with grads and AdamW moments)
+# exceeds one card; the float32 copy held against the plain routes keeps 9
+# (one group and the tail). Its train steps' attention backward shape:
+ZAMBA2_TRAIN_LAYERS = 27
+ZAMBA2_F32_LAYERS = 9
+ZAMBA2_BWD = (2, 2048, 32, 32, 112, True)
+ZAMBA2_NOISY_LEAVES = ("blocks/a_log", "blocks/w_dt", "blocks/dt_bias")
+# moonshot-v1-16b-a3b's loss_fn at B=2, S=2048 (16/16 heads of 128), and
+# the depth of its float32 copy; dbrx-132b at full width and 2 of its 40
+# layers (full depth, 132e9 parameters, fits no single card)
+MOONSHOT_SHAPE = (2, 2048, 2048, 16, 16, 128, True)
+MOONSHOT_F32_LAYERS = 4
+DBRX_LAYERS = 2
 # linear_scan vs linear_scan_ref: float32 sums in another order behind the
 # two-sided exp(+-P) factors (1e-3); bf16 inputs and outputs (5e-2);
 # tests/test_kernels.py's
@@ -293,15 +337,16 @@ SERVE_SCANS = [(4, 64, 32, 64, 64, False, True, 256),
                (1, 127, 32, 64, 64, False, True, 256)]
 # linear_scan_bwd vs linear_scan_bwd_ref, (shape, dtype, state0 and dS_T
 # given): rwkv6-1.6b's train step (neither given), HANDOFF_SCAN, zamba2's
-# post-update scan, and ragged shapes: T = c = 64, c = 37 < 64, c = 256
-# with K < 64 and V > 64 (two V slices), c = 48 with K = 48, V = 80
+# post-update scan at its train steps' B = 2, and ragged shapes: T = c =
+# 64, c = 37 < 64, c = 256 with K < 64 and V > 64 (two V slices), c = 48
+# with K = 48, V = 80
 SCAN_BWD_RAGGED = [(2, 64, 2, 16, 16, False, True, 64),
                    (2, 37, 2, 16, 24, False, True, 64),
                    (1, 512, 2, 32, 96, True, False, 256),
                    (2, 96, 2, 48, 80, False, True, 48)]
 SCAN_BWD_CASES = [(RWKV_SCAN, torch.float32, False),
                   (HANDOFF_SCAN, torch.float32, True),
-                  (MAMBA_SCAN, torch.float32, False)] + [
+                  (ZAMBA2_SCAN, torch.float32, False)] + [
     (s, dt, True) for s in SCAN_BWD_RAGGED
     for dt in (torch.float32, torch.bfloat16)]
 GRAD_NAMES = ("dr", "dk", "dv", "dlog_w", "du", "dstate0")
@@ -379,8 +424,9 @@ def phase_build() -> None:
     the flash backward, the linear_scan backward), one nvcc each, started
     together; registers and spills of the flash kernels at D = 96 and 112
     and of the linear_scan backward printed.  Held: the wgmma flash
-    backward, the wgmma flash forward at D = 96 and 112 and the scan
-    backward's gradient pass spill nothing; the SASS of the flash forward
+    backward, the wgmma flash forward at D = 96 and 112, the SIMT flash
+    backward at D = 112 and the scan backward's gradient pass spill
+    nothing; the SASS of the flash forward
     library and of the flash backward library each hold the tensor-core
     product and a TMA load, and the scan backward's holds HMMA (mma.sync
     on the tensor cores); the gradient pass's shared bytes and the blocks
@@ -414,7 +460,9 @@ def phase_build() -> None:
         f"by instance: {spills or 'not rebuilt in this run'}")
     check(all(v == (0, 0) for v in spills.values()), "the wgmma flash "
           f"backward spills registers: {spills}")
-    held = {}  # the wgmma forward at D = 96, 112 and the gradient pass
+    # the wgmma forward at D = 96, 112, the SIMT backward at D = 112 and
+    # the scan backward's gradient pass
+    held = {}
     for (src, _), (_, _, report) in zip(srcs[1:], results[1:]):
         for fn, regs, st, ld in _build.ptxas_table(report):
             if "Li96E" in fn or "Li112E" in fn or \
@@ -422,20 +470,23 @@ def phase_build() -> None:
                 log(f"[build] ptxas {src.stem} {fn}: {regs} registers, "
                     f"spill stores {st} bytes, spill loads {ld} bytes")
             if "flash_wgmma_kernelILi96E" in fn or \
-                    "flash_wgmma_kernelILi112E" in fn or "lsb_grad" in fn:
+                    "flash_wgmma_kernelILi112E" in fn or "lsb_grad" in fn or \
+                    ("9flash_bwdI" in fn and "Li112E" in fn):
                 held[fn] = (st, ld)
-    if results[1][2] and results[4][2]:
-        n_fa = sum("flash_wgmma" in fn for fn in held)
-        check((n_fa, len(held) - n_fa) == (4, 4), "ptxas listed "
-              f"{sorted(held)}, not the four flash_wgmma_kernel<96 or 112, "
-              "BK> and the four lsb_grad<T, VEC> instances")
+    if results[1][2] and results[3][2] and results[4][2]:
+        n = [sum(part in fn for fn in held)
+             for part in ("flash_wgmma", "9flash_bwdI", "lsb_grad")]
+        check(n == [4, 2, 4], f"ptxas listed {sorted(held)}, not the four "
+              "flash_wgmma_kernel<96 or 112, BK>, the two flash_bwd<T, 112> "
+              "and the four lsb_grad<T, VEC> instances")
         check(all(v == (0, 0) for v in held.values()), "the D = 96 or 112 "
-              "wgmma forward or the scan backward's gradient pass spills: "
-              f"{held}")
+              "wgmma forward, the D = 112 SIMT backward or the scan "
+              f"backward's gradient pass spills: {held}")
     else:
-        log("[build] the flash forward or the scan backward library was not "
+        log("[build] a flash library or the scan backward library was not "
             "rebuilt in this run (no ptxas report): the spill checks of the "
-            "D = 96 and 112 wgmma forwards and of lsb_grad are not held")
+            "D = 96 and 112 wgmma forwards, the D = 112 SIMT backward and "
+            "of lsb_grad are not held")
     sass_check(results[1][0])
     sass_check(results[3][0])
     sass_check(results[4][0], need=("HMMA",))
@@ -1936,6 +1987,126 @@ def phase_zamba2(device, name: str) -> list[dict]:
 
 
 # ----------------------------------------------------------------------
+# the moe family: moonshot-v1-16b-a3b, dbrx-132b
+# ----------------------------------------------------------------------
+
+def moe_plain_route(cfg, params, device, **kw) -> None:
+    """``phase_plain_route`` with ``flash_attention`` forced onto
+    ``attention_ref``, and the count of (token, slot) routing choices
+    (``moe.route``'s experts, every layer of both forwards of a route)
+    that differ between the two routes printed."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers, moe
+    seen, real = [], moe.route
+
+    def recording(logits, k):
+        gates, idx = real(logits, k)
+        seen.append(idx)
+        return gates, idx
+    moe.route = recording
+    try:
+        phase_plain_route(cfg, params, device, layers, "flash_attention",
+                          flash_attention, attention_ref, **kw)
+    finally:
+        moe.route = real
+    half = len(seen) // 2
+    diff = sum(int((a != b).sum())
+               for a, b in zip(seen[:half], seen[half:]))
+    total = sum(a.numel() for a in seen[:half])
+    log(f"[moe] {cfg.name} {str(cfg.dtype)[6:]}: (token, slot) routing "
+        f"choices that differ between the kernel and the attention_ref "
+        f"route: {diff} of {total} ({half} router calls a route)")
+
+
+def phase_moe(device, name: str) -> dict:
+    """The moe family.  moonshot-v1-16b-a3b at full width and depth (48
+    layers, d_model 2048, 16/16 heads of 128, 64 experts of d_ff 1408,
+    top-6, 2 shared experts, vocab 163840; bf16, seed 0; 28.9e9
+    parameters, the expert stacks drawn a layer at a time): ``loss_fn`` at
+    B=2, S=2048 (finite, within 1.0 of ln(vocab), exactly 48
+    ``flash_attention`` launches and none of any other kernel), timed;
+    peak memory; the ``attention_ref`` route in bf16 (loss 1e-3,
+    ``moe_plain_route``); ``ServeEngine``, 4 slots, 6 requests of 128-512
+    tokens x 32 new, no kernel launch in the run (prefill and decode run
+    on a cache); ``profile_llm``; then, the bf16 weights freed, a float32
+    copy of its first ``MOONSHOT_F32_LAYERS`` layers on both routes (loss
+    1e-4, last logits 1e-3 rel L2, argmax equal).  dbrx-132b at full width
+    and ``DBRX_LAYERS`` layers (48/8 heads of 128, 16 experts of d_ff
+    10752, top-4): ``loss_fn`` (2 launches) and its bf16 ``attention_ref``
+    route, the same bounds.  Returns the flash kernel's record at
+    ``MOONSHOT_SHAPE``."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import registry
+    from repro_torch.models.param import count_params, init_params
+
+    def forward(cfg, params) -> int:
+        reset_counts()
+        loss, _, launches = phase_llm_forward(cfg, params, device,
+                                              flash_attention)
+        others = {k: v for k, v in launch_counts().items()
+                  if k != "flash_attention"}
+        log(f"[moe] {cfg.name}: peak device memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB; "
+            f"other kernels' launches {others}")
+        check(np.isfinite(loss) and abs(loss - np.log(cfg.vocab)) < 1.0,
+              f"{cfg.name} loss {loss} is not near ln(vocab) = "
+              f"{np.log(cfg.vocab):.4f}")
+        check(launches == cfg.n_layers and not any(others.values()),
+              f"{cfg.name} loss_fn launched flash_attention {launches} "
+              f"times, not once per layer ({cfg.n_layers}), and {others}")
+        return launches
+
+    def draw(cfg):
+        torch.cuda.reset_peak_memory_stats(device)
+        t1 = time.perf_counter()
+        params = init_params(registry.specs(cfg), 0, device)
+        sync(device)
+        full = REGISTRY[cfg.name].n_layers
+        log(f"[moe] {cfg.name} at full width, {cfg.n_layers} of {full} "
+            f"layers: {count_params(registry.specs(cfg))} parameters drawn "
+            f"on the card in {time.perf_counter() - t1:.2f} s; "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, "
+            f"{cfg.n_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, "
+            f"{cfg.n_shared_experts} shared")
+        return params
+
+    t0 = time.perf_counter()
+    cfg = REGISTRY["moonshot-v1-16b-a3b"]
+    params = draw(cfg)
+    launches = forward(cfg, params)
+    moe_plain_route(cfg, params, device, need_argmax=False)
+    reset_counts()
+    _, pre_l, dec_l, _ = phase_serving(cfg, params, device, flash_attention)
+    check(sum(pre_l) + dec_l == 0 and not any(launch_counts().values()),
+          f"moonshot serving launched kernels {launch_counts()}; its "
+          "prefill and decode run the cache path")
+    profile_llm(cfg, params, device, "flash_")
+    torch.cuda.empty_cache()
+    cut = cfg.replace(n_layers=MOONSHOT_F32_LAYERS, dtype=torch.float32)
+    params32 = float_params(cut_layers(params, MOONSHOT_F32_LAYERS))
+    del params
+    torch.cuda.empty_cache()
+    moe_plain_route(cut, params32, device, rel_tol=1e-4, l2_tol=1e-3)
+    del params32
+    torch.cuda.empty_cache()
+    log(f"[moe] moonshot-v1-16b-a3b {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    cfg = REGISTRY["dbrx-132b"].replace(n_layers=DBRX_LAYERS)
+    params = draw(cfg)
+    forward(cfg, params)
+    moe_plain_route(cfg, params, device, need_argmax=False)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[moe] dbrx-132b {time.perf_counter() - t1:.1f} s")
+    return flash_shape_record(
+        device, name, MOONSHOT_SHAPE, "moonshot-v1-16b-a3b", launches,
+        "flash_attention (moonshot)", "flash_wgmma_kernel at D = 128, "
+        "16/16 heads")
+
+
+# ----------------------------------------------------------------------
 # the RWKV-6 path: linear_scan, rwkv6-1.6b forward and serving
 # ----------------------------------------------------------------------
 
@@ -2389,7 +2560,8 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # S = 192 on the SIMT forward (D = 32: the wgmma one's tiles are 128)
 BWD_SHAPES = [(1, 128, 3, 1, 16, True), (2, 128, 6, 2, 64, False),
               (1, 192, 5, 5, 32, True), (1, 256, 4, 2, 128, False),
-              (1, 256, 4, 2, 96, True), (1, 384, 6, 2, 96, False)]
+              (1, 256, 4, 2, 96, True), (1, 384, 6, 2, 96, False),
+              (1, 384, 6, 2, 112, True), (1, 384, 6, 2, 112, False)]
 OLMO_BWD = (2, 2048, 16, 16, 128, True)    # olmo-1b, a train step's shape
 LLAMA_BWD = (2, 2048, 32, 8, 128, True)    # llama3-8b's
 TRAIN_SHAPE = (2, 2048)                    # olmo-1b train steps: B, S
@@ -2412,24 +2584,25 @@ def bwd_inputs(shape, dtype, device, seed: int = 0):
 LSE_TOL = 1e-5
 
 
-def phase_flash_bwd_vs_plain(device) -> float:
+def phase_flash_bwd_vs_plain(device) -> dict:
     """The backward kernel against ``attention_bwd_ref`` on the same
     inputs (o and lse from the forward kernel; the plain version computes
     its own lse, and the kernel's is held against it first), rel L2 of
-    dq, dk and dv, at ragged small shapes and olmo-1b's and llama3-8b's,
-    float32 and bf16; for bf16 also against the float32 gradient of the
-    bf16 values with the float32 o (the wgmma forward's o has P rounded
-    to bf16: held to the same 2e-2).  Returns the largest absolute error
-    against the plain version."""
+    dq, dk and dv, at ragged small shapes and olmo-1b's, float32 and
+    bf16, and at llama3-8b's and zamba2-7b's train shapes in bf16; for
+    bf16 also against the float32 gradient of the bf16 values with the
+    float32 o (the wgmma forward's o has P rounded to bf16: held to the
+    same 2e-2).  Returns the largest absolute error against the plain
+    version by shape."""
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_ref,
                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_attention.flash_attention import (
         bwd_tile)
-    worst = 0.0
+    worst: dict[tuple, float] = {}
     cases = [(s, dt) for s in BWD_SHAPES + [OLMO_BWD]
              for dt in (torch.float32, torch.bfloat16)] + [
-        (LLAMA_BWD, torch.bfloat16)]
+        (LLAMA_BWD, torch.bfloat16), (ZAMBA2_BWD, torch.bfloat16)]
     for shape, dt in cases:
         causal = shape[-1]
         q, k, v, o, do, lse = bwd_inputs(shape, dt, device)
@@ -2441,8 +2614,9 @@ def phase_flash_bwd_vs_plain(device) -> float:
         want = attention_bwd_ref(q, k, v, o, do, causal=causal)
         errs = [rel_l2(g, w.double()) for g, w in zip(got, want)]
         ok = all(torch.isfinite(g).all() for g in got)
-        worst = max([worst] + [float((g.float() - w.float()).abs().max())
-                               for g, w in zip(got, want)])
+        worst[shape] = max([worst.get(shape, 0.0)] + [
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)])
         route = "wgmma" if bwd_tile(dt, shape[4])[1] == 128 else "SIMT"
         line = (f"[flash-bwd-vs-plain] {shape} {str(dt)[6:]} ({route}): "
                 f"lse max abs err {float((lse - lse_ref).abs().max()):.3g} "
@@ -2602,27 +2776,35 @@ def reset_counts() -> None:
     flash_attention.launches = flash_attention.bwd_launches = 0
 
 
-def train_kernels(cfg) -> tuple[str, str, str]:
-    """(forward count, backward count, the backward's device-kernel name
-    fragment) of the kernels a train step of ``cfg`` runs."""
+def train_launches(cfg) -> tuple[dict, tuple[str, ...]]:
+    """The launches of each kernel in one train step of ``cfg`` (full remat
+    runs each forward again in the backward; every other count 0), and the
+    name fragments of the backward's device kernels."""
+    from repro_torch.models.transformer import n_attn_apps
+    L = cfg.n_layers
     if cfg.family == "ssm":
-        return "linear_scan", "linear_scan_bwd", "lsb_"
-    return "flash_attention", "flash_attention_bwd", "flash_bwd"
+        return {"linear_scan": 2 * L, "linear_scan_bwd": L}, ("lsb_",)
+    if cfg.family == "hybrid":
+        apps = n_attn_apps(cfg)
+        return {"flash_attention": 2 * apps, "flash_attention_bwd": apps,
+                "linear_scan": 2 * L, "linear_scan_bwd": L}, (
+            "flash_bwd", "lsb_")
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L}, (
+        "flash_bwd",)
 
 
 def phase_train(device, card: str = "", cfg=None):
-    """``cfg`` (olmo-1b by default; rwkv6-1.6b) at full width and depth
-    (bf16) from seed 0: ``TRAIN_STEPS`` steps of ``make_train_step``
-    (default AdamW, full remat) at ``TRAIN_SHAPE`` through
-    ``FaultTolerantLoop``, checkpoints off at this size (a period past the
-    run), every launch count set to 0 just before the loop and read just
-    after.  Every step: finite loss and grad_norm, 2 x n_layers forward and
-    n_layers backward launches of the model's kernel (flash_attention, or
-    linear_scan for rwkv6; each layer's forward runs again in the
-    backward) and none of any other.  Tokens/s per step (the first
-    includes warm-up); peak device memory; then one more step under
-    ``torch.profiler``.  Returns (cfg, params, launches of the backward,
-    of the forward)."""
+    """``cfg`` (olmo-1b by default; rwkv6-1.6b, zamba2-7b cut to
+    ``ZAMBA2_TRAIN_LAYERS``) at full width (bf16) from seed 0:
+    ``TRAIN_STEPS`` steps of ``make_train_step`` (default AdamW, full
+    remat) at ``TRAIN_SHAPE`` through ``FaultTolerantLoop``, checkpoints off
+    at this size (a period past the run), every launch count set to 0 just
+    before the loop and read just after.  Every step: finite loss and
+    grad_norm, and exactly ``train_launches(cfg)``'s launches (each
+    layer's forward runs again in the backward).  Tokens/s per step (the
+    first includes warm-up); peak device memory; then one more step under
+    ``torch.profiler``.  Returns (cfg, params, the launches of the
+    ``TRAIN_STEPS`` steps by kernel)."""
     import tempfile
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import REGISTRY
@@ -2633,16 +2815,20 @@ def phase_train(device, card: str = "", cfg=None):
     from repro_torch.training import (TrainConfig, init_train_state,
                                       make_train_step)
     cfg = cfg or REGISTRY["olmo-1b"]
-    fwd_name, bwd_name, frag = train_kernels(cfg)
+    per_step, frags = train_launches(cfg)
+    full = REGISTRY[cfg.name].n_layers
+    depth = "depth" if cfg.n_layers == full else \
+        f"{cfg.n_layers} of its {full} layers"
     B, S = TRAIN_SHAPE
     tc = TrainConfig()
     t1 = time.perf_counter()
     params, opt = init_train_state(cfg, tc, 0, device)
     sync(device)
-    log(f"[train] {cfg.name} at full width and depth: "
+    log(f"[train] {cfg.name} at full width and {depth}: "
         f"{count_params(registry.specs(cfg))} parameters drawn on the card "
         f"in {time.perf_counter() - t1:.2f} s, remat {cfg.remat}, "
-        f"{str(cfg.dtype)[6:]}")
+        f"{str(cfg.dtype)[6:]}; launches expected a step: " + ", ".join(
+            f"{n} {c}" for n, c in per_step.items()))
     step = make_train_step(cfg, tc, device=device)
     steps = []
 
@@ -2671,8 +2857,8 @@ def phase_train(device, card: str = "", cfg=None):
     peak = torch.cuda.max_memory_allocated(device)
     for i, (wall, loss, gnorm, n) in enumerate(steps):
         log(f"[train] step {i}: {wall:.4f} s, {B * S / wall:.6g} tokens/s, "
-            f"loss {loss:.6g}, grad_norm {gnorm:.6g}, {fwd_name} launches "
-            f"{n[fwd_name]} forward, {n[bwd_name]} backward")
+            f"loss {loss:.6g}, grad_norm {gnorm:.6g}, launches " + ", ".join(
+                f"{k} {n[k]}" for k in per_step))
     log(f"[train] {cfg.name} B={B} S={S}: {TRAIN_STEPS} steps through "
         f"FaultTolerantLoop, {loop.restarts} restarts, stragglers "
         f"{loop.straggler_steps}; launches: " + ", ".join(
@@ -2682,8 +2868,7 @@ def phase_train(device, card: str = "", cfg=None):
           f"the loop ended at step {end} after {len(steps)} steps")
     check(all(np.isfinite(s[1]) and np.isfinite(s[2]) for s in steps),
           "a train step's loss or grad_norm is not finite")
-    want = {n: 0 for n in launches}
-    want.update({fwd_name: 2 * cfg.n_layers, bwd_name: cfg.n_layers})
+    want = {n: per_step.get(n, 0) for n in launches}
     check(all(s[3] == want for s in steps), f"launches per step "
           f"{[s[3] for s in steps]}, not {want}")
     batch = batch_fn(TRAIN_STEPS)
@@ -2693,8 +2878,9 @@ def phase_train(device, card: str = "", cfg=None):
         params, opt, m = step(params, opt, batch)
         float(m["loss"])
     prof = profile_call(one_step, f"{cfg.name} train step B={B} S={S}",
-                        device, frag)
-    bwd = {n: v for n, v in prof["by_name"].items() if frag in n}
+                        device, frags)
+    bwd = {n: v for n, v in prof["by_name"].items()
+           if any(f in n for f in frags)}
     bwd_us = sum(us for _, us in bwd.values())
     log("[train] the backward's kernels in the profiled step: " + "; ".join(
         f"{us / 1e3:.3f} ms in {c} x {n[:60]}" for n, (c, us) in
@@ -2713,28 +2899,41 @@ def phase_train(device, card: str = "", cfg=None):
           "(flash_bwd_prep) still runs in the train step")
     del opt
     torch.cuda.empty_cache()
-    return cfg, params, launches[bwd_name], launches[fwd_name]
+    return cfg, params, launches
+
+
+def plain_routes(cfg) -> list[tuple]:
+    """(module, attribute, plain version) of each kernel wrapper a
+    ``cfg`` forward calls: ``layers.flash_attention`` and, for rwkv6 and
+    zamba2, ``scan_op``."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.linear_scan import linear_scan_ref
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import layers
+    attn = (layers, "flash_attention", attention_ref)
+    scan = (scan_ops, "scan_op", linear_scan_ref)
+    return {"ssm": [scan], "hybrid": [attn, scan]}.get(cfg.family, [attn])
 
 
 def phase_train_plain_route(cfg, params, device, loss_tol: float,
                             leaf_tol: float | None = None,
-                            norm_tol: float | None = None) -> None:
+                            norm_tol: float | None = None,
+                            noisy_leaves=()) -> None:
     """One step's loss and gradients (``registry.loss_fn`` and
-    ``torch.autograd.grad``) on the kernel route against the route with the
-    model's kernel wrapper forced onto its plain version under autograd
-    (here only): ``layers.flash_attention`` onto ``attention_ref``, or for
-    rwkv6 ``scan_op`` onto ``linear_scan_ref``, at ``TRAIN_SHAPE``: the
-    loss within ``loss_tol`` relative; every gradient leaf's rel L2
-    printed and held to ``leaf_tol``, the global norm to ``norm_tol``,
-    where given."""
-    from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.linear_scan import linear_scan_ref
-    from repro_torch.kernels.linear_scan import ops as scan_ops
-    from repro_torch.models import layers, registry
+    ``torch.autograd.grad``) on the kernel route, which must launch
+    exactly ``train_launches(cfg)``'s kernels, against the route with the
+    model's kernel wrappers forced onto their plain versions under autograd
+    (here only, ``plain_routes``: ``layers.flash_attention`` onto
+    ``attention_ref``, ``scan_op`` onto ``linear_scan_ref``) at
+    ``TRAIN_SHAPE``: the loss within ``loss_tol`` relative; every gradient
+    leaf's rel L2 printed and held to ``leaf_tol``, the global norm to
+    ``norm_tol``, where given; the ``noisy_leaves`` (those whose gradient
+    swings with float32 rounding noise, held by the caller through
+    ``phase_train_witness``) are printed and not held to ``leaf_tol``."""
+    from repro_torch.models import registry
     from repro_torch.optim.adamw import global_norm
-    fwd_name, bwd_name, _ = train_kernels(cfg)
-    module, attr, plain = (scan_ops, "scan_op", linear_scan_ref) \
-        if cfg.family == "ssm" else (layers, "flash_attention", attention_ref)
+    per_step, _ = train_launches(cfg)
+    routes = plain_routes(cfg)
     B, S = TRAIN_SHAPE
     batch = llm_batch(cfg, device, B, S, seed=3)
     names = [n for n, _ in tree_items(params)]
@@ -2745,32 +2944,40 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
         g = torch.autograd.grad(loss, flat)
         return float(loss.detach()), g
 
-    bwd0 = launch_counts()[bwd_name]
+    c0 = launch_counts()
     loss_k, g_k = grads()
-    check(launch_counts()[bwd_name] == bwd0 + cfg.n_layers,
-          "the kernel route did not run the backward kernel once a layer")
-    wrapper = getattr(module, attr)
-    setattr(module, attr, plain)
-    launches = launch_counts()
+    c1 = launch_counts()
+    ran = {n: c1[n] - c0[n] for n in c0}
+    check(ran == {n: per_step.get(n, 0) for n in c0}, f"the kernel route "
+          f"launched {ran}, not {per_step}")
+    wrappers = [getattr(m, a) for m, a, _ in routes]
+    for m, a, plain in routes:
+        setattr(m, a, plain)
     try:
         loss_p, g_p = grads()
     finally:
-        setattr(module, attr, wrapper)
-    check(launch_counts() == launches, "the plain route launched a kernel")
+        for (m, a, _), w in zip(routes, wrappers):
+            setattr(m, a, w)
+    check(launch_counts() == c1, "the plain route launched a kernel")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     nk, np_ = float(global_norm(g_k)), float(global_norm(g_p))
     nrel = abs(nk - np_) / np_
     leaf = {n: rel_l2(a, b.double()) for n, a, b in zip(names, g_k, g_p)}
-    log(f"[train-plain-route] {cfg.name} {str(cfg.dtype)[6:]} B={B} S={S} "
-        f"with {attr} -> {plain.__name__}: loss kernel {loss_k:.8g}, "
-        f"plain {loss_p:.8g}, rel err {rel:.3g} (limit {loss_tol}); "
-        f"grad_norm kernel {nk:.8g}, plain {np_:.8g}, rel err {nrel:.3g}"
-        f"{'' if norm_tol is None else f' (limit {norm_tol})'}")
+    swapped = ", ".join(f"{a} -> {p.__name__}" for _, a, p in routes)
+    log(f"[train-plain-route] {cfg.name} {cfg.n_layers} layers "
+        f"{str(cfg.dtype)[6:]} B={B} S={S} with {swapped}: loss kernel "
+        f"{loss_k:.8g}, plain {loss_p:.8g}, rel err {rel:.3g} (limit "
+        f"{loss_tol}); grad_norm kernel {nk:.8g}, plain {np_:.8g}, rel err "
+        f"{nrel:.3g}{'' if norm_tol is None else f' (limit {norm_tol})'}")
+    held = [e for n, e in leaf.items() if n not in noisy_leaves]
     log("[train-plain-route]   rel L2 by leaf: " + ", ".join(
         f"{n} {e:.3g}" for n, e in leaf.items()) +
-        ("" if leaf_tol is None else f" (limit {leaf_tol})"))
+        ("" if leaf_tol is None else f" (limit {leaf_tol}") +
+        ("" if leaf_tol is None or not noisy_leaves else
+         f" but for {', '.join(noisy_leaves)}") +
+        ("" if leaf_tol is None else ")"))
     check(rel <= loss_tol and (norm_tol is None or nrel <= norm_tol) and
-          (leaf_tol is None or max(leaf.values()) <= leaf_tol),
+          (leaf_tol is None or max(held) <= leaf_tol),
           "the kernel route's training gradients disagree with the plain "
           "route's")
 
@@ -2921,8 +3128,12 @@ def phase_scan_in_model(cfg, params, device) -> None:
         "linear_scan_ref's on a layer's own inputs")
 
 
-def phase_train_witness(cfg, device, cases: dict, live_decay=()) -> None:
-    """rwkv6-1.6b in float32 at full width and depth, for each case
+def phase_train_witness(cfg, device, cases: dict, live_decay=(),
+                        decay_leaves=DECAY_LEAVES, plain_attn=None) -> None:
+    """rwkv6-1.6b in float32 at full width and depth (or zamba2-7b at a cut
+    depth, with no decay leaves and ``plain_attn`` given: the routes with
+    the scan's forward kernel keep the flash kernel, the others take
+    ``plain_attn`` for ``layers.flash_attention``), for each case
     (label -> a function giving float32 params that require grad): first
     ``phase_scan_in_model`` (the forward kernel's accuracy on each layer's
     own inputs), then one step's loss and gradients (``registry.loss_fn``,
@@ -2933,7 +3144,7 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=()) -> None:
     kernel with ``linear_scan_bwd_ref`` or with the float64 backward, the
     float64 forward with ``linear_scan_bwd_ref``; and the plain route with
     o moved by noise of float32's unit roundoff, twice (``noisy_plain``).
-    Held: the decay leaves' gradients are exactly 0 on every route (every
+    Held: the ``decay_leaves``' gradients are exactly 0 on every route (every
     log_w lies below the -60/c clamp at these weights), except in the
     cases labelled in ``live_decay`` (decays inside the clamp), where they
     are not 0 on the kernel route (their nonzeros counted and printed) and
@@ -2949,11 +3160,11 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=()) -> None:
     witness, to the kernel route and to the plain route."""
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
     from repro_torch.kernels.linear_scan import ops as scan_ops
-    from repro_torch.models import registry
+    from repro_torch.models import layers, registry
     from repro_torch.optim.adamw import global_norm
     B, S = TRAIN_SHAPE
     batch = llm_batch(cfg, device, B, S, seed=3)
-    wrapper = scan_ops.scan_op
+    wrapper, attn = scan_ops.scan_op, layers.flash_attention
     noisy = ("plain + noise 1", "plain + noise 2")
     routes = {"witness": scan_f64_op, "kernel": linear_scan,
               "plain": linear_scan_ref,
@@ -2962,31 +3173,34 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=()) -> None:
               "f64 fwd + plain bwd": split_scan("f64", "ref"),
               noisy[0]: noisy_plain(1), noisy[1]: noisy_plain(2)}
     kept = ("witness", "kernel", "plain")
-    fwd = {"linear_scan": 2 * cfg.n_layers}
-    want = {"kernel": {**fwd, "linear_scan_bwd": cfg.n_layers},
+    per_step = train_launches(cfg)[0]
+    fwd = {n: c for n, c in per_step.items() if n != "linear_scan_bwd"}
+    want = {"kernel": per_step,
             "kernel fwd + plain bwd": fwd, "kernel fwd + f64 bwd": fwd}
     for label, make in cases.items():
         params = make()
         live = label in live_decay
-        skip = () if live else DECAY_LEAVES  # leaves held to rel L2 rules
+        skip = () if live else decay_leaves  # leaves held to rel L2 rules
         phase_scan_in_model(cfg, params, device)
         names = [n for n, _ in tree_items(params)]
         flat = [p for _, p in tree_items(params)]
         grads, loss, norm, moved, zero, to = {}, {}, {}, {}, {}, {}
         for route, op in routes.items():
             scan_ops.scan_op = op
+            if plain_attn is not None and not route.startswith("kernel"):
+                layers.flash_attention = plain_attn
             before = launch_counts()
             try:
                 lo = registry.loss_fn(params, batch, cfg)
                 g = torch.autograd.grad(lo, flat)
             finally:
-                scan_ops.scan_op = wrapper
+                scan_ops.scan_op, layers.flash_attention = wrapper, attn
             after = launch_counts()
             moved[route] = {n: after[n] - before[n] for n in before
                             if after[n] != before[n]}
             loss[route], norm[route] = float(lo.detach()), float(global_norm(g))
             zero[route] = {n: int(torch.count_nonzero(a))
-                           for n, a in zip(names, g) if n in DECAY_LEAVES}
+                           for n, a in zip(names, g) if n in decay_leaves}
             to[route] = {ref: {n: rel_l2(a, b) for n, a, b in
                                zip(names, g, grads[ref]) if n not in skip}
                          for ref in kept if ref in grads}
@@ -2999,7 +3213,7 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=()) -> None:
             check(all(v > 0 for v in zero["kernel"].values()), f"{label}: "
                   "a decay leaf's gradient is 0 on the kernel route: "
                   f"nonzero counts {zero['kernel']}")
-        else:
+        elif decay_leaves:
             check(all(v == 0 for z in zero.values() for v in z.values()),
                   f"a decay leaf's gradient is not 0: nonzero counts {zero}")
 
@@ -3015,7 +3229,10 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=()) -> None:
                  + ", ".join(f"{n} {v}" for n, v in zero["kernel"].items())
                  + " (held with the other leaves)") if live else (
             f"decay leaves' gradients exactly 0 on every route "
-            f"({', '.join(DECAY_LEAVES)})")
+            f"({', '.join(decay_leaves) or 'none'})")
+        if plain_attn is not None:
+            decay += (f"; the routes without the scan's forward kernel on "
+                      f"{plain_attn.__name__}")
         log(f"[train-witness] {cfg.name} float32, {label}, B={B} S={S}: loss "
             f"kernel {loss['kernel']:.8g}, plain {loss['plain']:.8g}, "
             f"witness (the scan in float64) {loss['witness']:.8g}; {decay}")
@@ -3125,16 +3342,88 @@ def phase_train_cli() -> None:
           "the train CLI failed on rwkv6-1.6b")
 
 
-def phase_training(device, card: str, name: str) -> tuple[dict, int]:
+def cut_layers(params, n: int) -> dict:
+    """``params`` with every stacked leaf of ``blocks`` cut to its first
+    ``n`` layers (views); the other leaves as they are."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+    return {k: cut(v) if k == "blocks" else v for k, v in params.items()}
+
+
+def phase_zamba2_train(device, card: str, name: str,
+                       bwd_abs: float) -> dict:
+    """zamba2-7b at full width and ``ZAMBA2_TRAIN_LAYERS`` layers trains
+    (``phase_train``: 2 x 4 flash forwards at D = 112, 4 flash backwards,
+    2 x 27 scan forwards and 27 scan backwards a step, each group of 6
+    Mamba-2 layers with its shared-block application and each tail layer
+    rematerialised); one step's gradients against the route with
+    ``flash_attention`` on ``attention_ref`` and ``scan_op`` on
+    ``linear_scan_ref`` under autograd, in bf16 (loss 1e-3, grad_norm
+    1e-2) and on a float32 copy of the trained params' first
+    ``ZAMBA2_F32_LAYERS`` layers (one group and the tail: loss 1e-5,
+    grad_norm 1e-4, every leaf printed and held to 1e-4 rel L2 but
+    ``ZAMBA2_NOISY_LEAVES``), whose leaves are then held
+    against the route whose scan is float64 (``phase_train_witness``).
+    Returns the D = 112 backward's record, timed at ``ZAMBA2_BWD`` with
+    ``bwd_abs``, its largest absolute error against the plain version at
+    that shape."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import attention_ref
+    t0 = time.perf_counter()
+    cfg = REGISTRY["zamba2-7b"].replace(n_layers=ZAMBA2_TRAIN_LAYERS)
+    cfg, params, launches = phase_train(device, card, cfg)
+    phase_train_plain_route(cfg, params, device, loss_tol=1e-3,
+                            norm_tol=1e-2)
+    cut = cfg.replace(n_layers=ZAMBA2_F32_LAYERS, dtype=torch.float32)
+    params32 = f32_params(cut_layers(params, ZAMBA2_F32_LAYERS))
+    del params
+    torch.cuda.empty_cache()
+    # every leaf is held to 1e-4 rel L2 of the plain routes but the three
+    # that feed the decay, which swing past it as far as noise of float32's
+    # unit roundoff moves the plain route (a_log 1.5e-4 to 5.0e-4, w_dt
+    # 3.4e-5 to 1.2e-4, dt_bias 3.1e-5 to 1.0e-4 in three runs on an H100
+    # 80GB HBM3 at 700 W): those are printed, and all leaves are held
+    # against the route whose scan is float64, as rwkv6-1.6b's
+    phase_train_plain_route(cut, params32, device, loss_tol=1e-5,
+                            leaf_tol=1e-4, norm_tol=1e-4,
+                            noisy_leaves=ZAMBA2_NOISY_LEAVES)
+    phase_train_witness(cut, device, {
+        f"the trained params' first {ZAMBA2_F32_LAYERS} layers":
+            lambda: params32}, decay_leaves=(), plain_attn=attention_ref)
+    del params32
+    torch.cuda.empty_cache()
+    t = flash_bwd_times(ZAMBA2_BWD, device, name)
+    log(f"[train] zamba2-7b {time.perf_counter() - t0:.1f} s; launches in "
+        "the train steps: " + ", ".join(f"{n} {c}" for n, c in
+                                        launches.items()))
+    return {
+        "name": "flash_attention_bwd (D=112)", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
+        "design": "no TPU counterpart (XLA's gradient of the forward): the "
+                  "delta pass (16 lanes a bf16 row of 14 parts), then the "
+                  "float32 SIMT flash_bwd<bf16, 112> (64 keys a block, K/V "
+                  "widened to float32 in shared memory, dQ by float32 "
+                  "atomics) on the wgmma forward's lse; times at zamba2-7b's "
+                  f"{ZAMBA2_BWD}",
+        "launches": launches["flash_attention_bwd"],
+        "max_abs_err": bwd_abs, **t,
+    }
+
+
+def phase_training(device, card: str, name: str) -> tuple[list, int]:
     """The training slices: the flash backward, olmo-1b's train steps and
     their routes, a checkpoint round trip; then rwkv6-1.6b's train steps
     (the linear_scan backward) and their routes, and the train CLI on
-    rwkv6.  Returns the flash backward's record and the linear_scan
-    backward's launches in rwkv6's train steps."""
+    rwkv6; then zamba2-7b's (``phase_zamba2_train``).  Returns the flash
+    backward's records (olmo-1b's shape, then zamba2-7b's at D = 112) and
+    the linear_scan backward's launches in rwkv6's train steps."""
     from repro_torch.configs import REGISTRY
     t0 = time.perf_counter()
     bwd_abs = phase_flash_bwd_vs_plain(device)
-    cfg, params, bwd_launches, fwd_launches = phase_train(device, card)
+    cfg, params, launches = phase_train(device, card)
     phase_train_plain_route(cfg, params, device, loss_tol=1e-3,
                             norm_tol=1e-2)
     cfg32 = cfg.replace(dtype=torch.float32)
@@ -3146,13 +3435,13 @@ def phase_training(device, card: str, name: str) -> tuple[dict, int]:
     del params32
     torch.cuda.empty_cache()
     phase_train_small(device)
-    record = flash_bwd_record(device, bwd_launches, bwd_abs, name)
+    records = [flash_bwd_record(device, launches["flash_attention_bwd"],
+                                max(bwd_abs.values()), name)]
     log(f"[train] olmo-1b {time.perf_counter() - t0:.1f} s; flash_attention "
-        f"launches in the train steps: {fwd_launches} forward, "
-        f"{bwd_launches} backward")
+        f"launches in the train steps: {launches['flash_attention']} "
+        f"forward, {launches['flash_attention_bwd']} backward")
     t1 = time.perf_counter()
-    cfg, params, scan_bwd, scan_fwd = phase_train(
-        device, card, REGISTRY["rwkv6-1.6b"])
+    cfg, params, launches = phase_train(device, card, REGISTRY["rwkv6-1.6b"])
     phase_train_plain_route(cfg, params, device, loss_tol=1e-3,
                             norm_tol=1e-2)
     low = f"the trained params with w_base {LOW_W_BASE:g}"
@@ -3166,9 +3455,12 @@ def phase_training(device, card: str, name: str) -> tuple[dict, int]:
     torch.cuda.empty_cache()
     phase_train_cli()
     log(f"[train] rwkv6-1.6b {time.perf_counter() - t1:.1f} s; linear_scan "
-        f"launches in the train steps: {scan_fwd} forward, {scan_bwd} "
-        f"backward; the training phase {time.perf_counter() - t0:.1f} s")
-    return record, scan_bwd
+        f"launches in the train steps: {launches['linear_scan']} forward, "
+        f"{launches['linear_scan_bwd']} backward")
+    records.append(phase_zamba2_train(device, card, name,
+                                      bwd_abs[ZAMBA2_BWD]))
+    log(f"[train] the training phase {time.perf_counter() - t0:.1f} s")
+    return records, launches["linear_scan_bwd"]
 
 
 def main() -> int:
@@ -3280,6 +3572,8 @@ def main() -> int:
     log(f"[phi3] {time.perf_counter() - t0:.1f} s")
     records += phase_zamba2(device, name)
     log(f"[zamba2] {time.perf_counter() - t0:.1f} s")
+    records.append(phase_moe(device, name))
+    log(f"[moe] {time.perf_counter() - t0:.1f} s")
 
     scan_abs = phase_scan_vs_plain(device)
     scan_bwd_abs = phase_scan_bwd_vs_plain(device)
@@ -3330,7 +3624,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(scan_record(device, scan_launches, scan_abs, name))
     flash_bwd, scan_bwd_launches = phase_training(device, card, name)
-    records.append(flash_bwd)
+    records += flash_bwd
     records.append(scan_bwd_record(device, scan_bwd_launches, scan_bwd_abs,
                                    name))
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -19,11 +19,11 @@
 //   1. bfloat16 at D = 64 or 128 (every full-width model of the repo):
 //      flash_bwd_wgmma_kernel, on the tensor cores; Sk a multiple of 128,
 //      Sq of 64;
-//   2. float32 (D = 16, 32, 64, 96, 128) and bfloat16 at D = 16, 32
-//      (only the .reduced() configs) or 96 (phi-3-vision-4.2b, whose
-//      forward runs on the wgmma kernel; the backward has no wgmma route at
-//      D = 96 yet): the float32 SIMT flash_bwd; Sq and Sk
-//      multiples of 64.
+//   2. float32 (D = 16, 32, 64, 96, 112, 128) and bfloat16 at D = 16, 32
+//      (only the .reduced() configs), 96 (phi-3-vision-4.2b) or 112
+//      (zamba2-7b's shared block), whose forwards run on the wgmma kernel
+//      (the backward has no wgmma route at D = 96 or 112 yet): the float32
+//      SIMT flash_bwd; Sq and Sk multiples of 64.
 // There is no fallback from one to the other.
 //
 // Both compute, per (q row, key) kept by the mask (causal keeps
@@ -142,7 +142,8 @@ __device__ __forceinline__ float dot16(const uint4& a, const uint4& b,
 // lanes a row: D * sizeof(T) / 16 of them hold 16 bytes each; rounded up
 // to a power of two (2 to 32, dividing the warp) so that the shuffles
 // reduce within a row: at D = 96 a row is 24 float32 or 12 bf16 parts
-// over 32 or 16 lanes, the lanes past its parts adding 0
+// over 32 or 16 lanes, at D = 112 28 or 14 parts over 32 or 16, the lanes
+// past its parts adding 0
 template <typename T, int D>
 __host__ __device__ constexpr int delta_lanes() {
   constexpr int parts = D * (int)sizeof(T) / 16;
@@ -197,7 +198,7 @@ int launch_delta(const void* o, const void* dout, float* delta, int B,
 }
 
 // ---------------------------------------------------------------------
-// 2. the SIMT kernel (float32; bf16 at D = 16, 32, 96)
+// 2. the SIMT kernel (float32; bf16 at D = 16, 32, 96, 112)
 // ---------------------------------------------------------------------
 
 constexpr int TX = 16;  // threads along a row of a tile
@@ -924,7 +925,9 @@ int simt_by_head_dim(int D, const Args& a) {
   switch (D) {
     case 16: return launch_simt<T, 16>(a);
     case 32: return launch_simt<T, 32>(a);
-    case 96: return launch_simt<T, 96>(a);  // no wgmma backward at 96 yet
+    // bf16 too: no wgmma backward at 96 or 112 yet
+    case 96: return launch_simt<T, 96>(a);
+    case 112: return launch_simt<T, 112>(a);
   }
   if constexpr (sizeof(T) == 4) {  // float32 only: bf16 takes the wgmma
     switch (D) {

@@ -23,8 +23,8 @@ o; its backward is ``flash_attention_bwd``: on CUDA tensors the
 hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a library of
 their own, built the same way; (dtype, D) picks the kernel: bfloat16 at
 D = 64 or 128 on the tensor cores, the rest the float32 SIMT one, bfloat16
-at D = 96 included, on the lse of the wgmma forward; no kernel at D = 112,
-``BWD_HEAD_DIMS``), counted in ``flash_attention.bwd_launches``; on CPU
+at D = 96 and 112 included, on the lse of the wgmma forward), counted in
+``flash_attention.bwd_launches``; on CPU
 tensors ``attention_bwd_ref``.  The JAX package has no backward kernel:
 XLA differentiates through its forward.  The backward is not
 differentiable again.
@@ -49,8 +49,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 WGMMA_HEAD_DIMS = (64, 96, 112, 128)  # bfloat16 at these: the wgmma kernel
-# the backward's head dims: D = 112 (zamba2-7b) waits for hybrid training
-BWD_HEAD_DIMS = (16, 32, 64, 96, 128)
 BWD_WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these: the wgmma backward
 # (blk_q, blk_k) each kernel is compiled for; the first is the default
 # (for the wgmma kernel the faster on the H100, the PERF.md kernel table:
@@ -277,13 +275,9 @@ def _check_bwd(q, k, v, o, do, lse) -> None:
                          f"{[tuple(t.shape) for t in ts]}")
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
-    if D in HEAD_DIMS and D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: no backward kernel at head "
-                         f"dim {D} yet: it comes with the hybrid family's "
-                         "training (ROADMAP.md, queue 1 item 7)")
-    if Bk != B or Dk != D or D not in BWD_HEAD_DIMS or Hkv == 0 or Hq % Hkv:
+    if Bk != B or Dk != D or D not in HEAD_DIMS or Hkv == 0 or Hq % Hkv:
         raise ValueError("flash_attention_bwd: needs one batch and head dim "
-                         f"in {BWD_HEAD_DIMS} and Hq a multiple of Hkv, got "
+                         f"in {HEAD_DIMS} and Hq a multiple of Hkv, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     bq, bk = bwd_tile(q.dtype, D)
     if Sq % bq or Sk % bk:
@@ -305,7 +299,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sk, Hkv, D), o the forward's output, do the gradient of the loss
     with respect to it and lse the forward's row log-sum-exp (float32,
     (B, Hq, Sq)) -> (dq, dk, dv) in the inputs' dtypes.  float32 or
-    bfloat16, D in ``BWD_HEAD_DIMS``, Sq and Sk multiples of ``bwd_tile(dtype,
+    bfloat16, D in ``HEAD_DIMS``, Sq and Sk multiples of ``bwd_tile(dtype,
     D)``.  CUDA tensors launch the kernels (delta, then the gradients;
     counted once in ``flash_attention.bwd_launches``) and need lse; CPU
     tensors take ``attention_bwd_ref``, which computes lse where it is

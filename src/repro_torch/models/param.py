@@ -9,6 +9,7 @@ axis names are kept for the mesh layer, which is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Any, Callable
 
@@ -59,6 +60,12 @@ def _leaf_seed(seed: int, path: tuple) -> int:
     return zlib.crc32(f"{seed}:{'/'.join(path)}".encode())
 
 
+# leaves of more elements than this are drawn in slices (``_init_leaf``);
+# every leaf of the configs the card ran before the moe family is
+# smaller, so their draws did not change
+SLICED_DRAW = 2 ** 32
+
+
 def _init_leaf(path: tuple, spec: ParamSpec, seed: int,
                device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":
@@ -74,9 +81,18 @@ def _init_leaf(path: tuple, spec: ParamSpec, seed: int,
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = fan_in ** -0.5
     gen = torch.Generator(device=device).manual_seed(_leaf_seed(seed, path))
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(spec.dtype)  # in place: one float32 copy alive
+    if math.prod(spec.shape) <= SLICED_DRAW:
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(spec.dtype)  # in place: one float32 copy alive
+    # a float32 draw of the whole leaf would be 4 bytes an element beside
+    # the result (35.4 GB for each of moonshot-v1-16b-a3b's expert stacks):
+    # draw it a slice of the leading axis at a time, in order
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for part in out:
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               dtype=torch.float32, device=device).mul_(std))
+    return out
 
 
 def init_params(tree: SpecTree, seed: int = 0,

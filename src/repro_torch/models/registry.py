@@ -1,5 +1,8 @@
-"""Family dispatch: one API over the ported decoder families, dense, ssm
-(RWKV-6) and hybrid (Zamba2: Mamba-2 layers and a shared attention block).
+"""Family dispatch: one API over the ported decoder families, dense, moe
+(a mixture of experts in place of each layer's MLP), ssm (RWKV-6) and
+hybrid (Zamba2: Mamba-2 layers and a shared attention block); the
+encoder-decoder family raises until its slice (ROADMAP.md, queue 1 item
+7).
 
     specs(cfg)                                 -> ParamSpec tree
     loss_fn(params, batch, cfg)                -> scalar

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly for the dense, ssm (RWKV-6) and hybrid (Zamba2)
+"""Decoder-LM assembly for the dense, moe, ssm (RWKV-6) and hybrid (Zamba2)
 families.
 
 One spec builder and three entry points:
@@ -17,8 +17,8 @@ stacks the new per-layer caches (KV caches, or recurrent states) back to
 The hybrid family interleaves the Mamba-2 layers with one *shared*
 attention block applied every ``cfg.attn_every`` layers: the shared
 block's weights are the same at every application, its KV cache is
-indexed by application number.  The moe family is not ported yet
-(ROADMAP, queue 1 item 7).
+indexed by application number.  The moe family is the dense stack with
+a mixture of experts (``moe.apply_moe``) in place of each layer's MLP.
 """
 from __future__ import annotations
 
@@ -30,11 +30,12 @@ from . import ssm
 from .layers import (apply_mlp, apply_norm, attention, attention_specs,
                      cross_entropy, embed_specs, embed_tokens, lm_logits,
                      make_kv_cache, mlp_specs, norm_specs)
+from .moe import apply_moe, moe_specs
 from .param import ParamSpec, SpecTree
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family == "dense" or (cfg.family, cfg.ssm_type) in (
+    if cfg.family in ("dense", "moe") or (cfg.family, cfg.ssm_type) in (
             ("ssm", "rwkv6"), ("hybrid", "mamba2")):
         return
     raise NotImplementedError(
@@ -75,7 +76,8 @@ def lm_specs(cfg: ModelConfig) -> SpecTree:
         if an:
             block["attn_norm"] = an
             block["mlp_norm"] = norm_specs(cfg, L)
-        block["mlp"] = mlp_specs(cfg, L)
+        block["mlp"] = moe_specs(cfg, L) if cfg.family == "moe" \
+            else mlp_specs(cfg, L)
     specs["blocks"] = block
     if cfg.family == "hybrid":
         specs["shared"] = {"attn": attention_specs(cfg),
@@ -99,7 +101,9 @@ def _dense_block(pl, x, positions, cache_l, cfg: ModelConfig, decode: bool):
                              cache=cache_l, decode=decode)
     x = x + a
     h = apply_norm(pl.get("mlp_norm", {}), x, cfg)
-    return x + apply_mlp(pl["mlp"], h, cfg), new_cache
+    m = apply_moe(pl["mlp"], h, cfg) if cfg.family == "moe" \
+        else apply_mlp(pl["mlp"], h, cfg)
+    return x + m, new_cache
 
 
 def _rwkv_block(pl, x, state_l, cfg: ModelConfig, decode: bool):
@@ -331,10 +335,10 @@ def _cache_length(cache, cfg: ModelConfig):
 
 def empty_cache(params, batch, cfg: ModelConfig, *, train: bool,
                 max_len: int = 0):
-    """Zero cache on the batch's device.  Dense: a KV cache of ``max_len``
-    positions, none for the full-sequence forward (``train``, no KV
-    retention).  ssm: the zero recurrent state ((st, tm carry, cm carry),
-    token counter), the same for both.  hybrid: ((the float32 Mamba-2
+    """Zero cache on the batch's device.  Dense and moe: a KV cache of
+    ``max_len`` positions, none for the full-sequence forward (``train``,
+    no KV retention).  ssm: the zero recurrent state ((st, tm carry, cm
+    carry), token counter), the same for both.  hybrid: ((the float32 Mamba-2
     state, the conv state), the shared block's KV cache of one entry an
     application, None for ``train``)."""
     _require_ported(cfg)

@@ -312,16 +312,17 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
 # over 3), every head dim, S = 64 and 192 on the SIMT forward (D = 32: the
 # wgmma forward's tiles are 128), several 64-row q tiles per 128-key tile
 # of the wgmma backward (S = 384, 256), and the two models' shapes at B = 1.
-# D = 96 runs the SIMT backward on the wgmma forward's lse in bf16, whose
-# 128-row q tiles take S = 384 (three of them) and refuse 192; float32
-# keeps S = 192 as well.
+# D = 96 and 112 run the SIMT backward on the wgmma forward's lse in bf16,
+# whose 128-row q tiles take S = 384 (three of them) and refuse 192;
+# float32 keeps S = 192 as well.
 BWD_SHAPES = [(1, 128, 3, 1, 16), (2, 64, 6, 2, 32), (1, 192, 5, 5, 32),
               (2, 128, 6, 2, 64), (1, 256, 4, 2, 128), (1, 384, 6, 2, 64),
               (2, 256, 9, 3, 128), (1, 2048, 16, 16, 128),
-              (1, 2048, 32, 8, 128), (1, 384, 4, 2, 96)]
+              (1, 2048, 32, 8, 128), (1, 384, 4, 2, 96),
+              (1, 384, 6, 2, 112), (2, 256, 4, 4, 112)]
 BWD_CASES = [(s, dt) for s in BWD_SHAPES
              for dt in (torch.float32, torch.bfloat16)] + [
-    ((1, 192, 4, 2, 96), torch.float32)]
+    ((1, 192, 4, 2, 96), torch.float32), ((1, 192, 6, 2, 112), torch.float32)]
 # relative L2 error of dq, dk, dv against attention_bwd_ref on the same
 # inputs: float32 sums in another order (dq's atomics in a varying one);
 # bf16 rounds the three outputs to 8 mantissa bits
@@ -458,16 +459,24 @@ def test_flash_wgmma_forward_at_head_dim_112(cuda, no_tf32, causal):
     _wgmma_forward_at_other_lengths(112, causal, cuda)
 
 
-def test_flash_backward_refuses_head_dim_112(cuda):
-    """The backward has no kernel at D = 112 yet: a CUDA call raises and
-    names the queue item (hybrid training), launching nothing."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
-    q, k, v = _qkv(1, 128, 128, 2, 2, 112, torch.bfloat16, cuda)
-    o, lse = flash_attention_with_lse(q, k, v)
-    before = flash_attention.bwd_launches
-    with pytest.raises(ValueError, match="head dim 112.*ROADMAP.*item 7"):
-        flash_attention_bwd(q, k, v, o, torch.ones_like(o), lse=lse)
-    assert flash_attention.bwd_launches == before
+def test_flash_attention_trains_at_head_dim_112(cuda, no_tf32):
+    """zamba2-7b's head dim (112) under autograd on the card, bf16 at its
+    shared block's full head count (32/32): the wgmma forward writes lse,
+    the SIMT backward takes it, one launch each; the gradients within the
+    bf16 tolerance of autograd through ``attention_ref`` on the same
+    values in float32."""
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(1, 256, 256, 32, 32, 112, torch.bfloat16, cuda, seed=4))
+    do = _qkv(1, 256, 256, 32, 32, 112, torch.bfloat16, cuda, seed=5)[0]
+    fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+    got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - fwd,
+            flash_attention.bwd_launches - bwd) == (1, 1)
+    f = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*f), f, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and _rel_l2(g, w) <= 2e-2
 
 
 @pytest.mark.parametrize("D", [64, 96, 112, 128])
@@ -736,6 +745,71 @@ def test_rwkv_train_step_on_card_matches_cpu(cuda, no_tf32):
     assert abs(gc - gp) <= 1e-4 * abs(gp)
     for a, b in zip(dc, dp):
         assert _rel_l2(a, b) <= 1e-4
+
+
+def test_hybrid_train_step_on_card_matches_cpu(cuda, no_tf32):
+    """Reduced zamba2-7b with the shared block at head dim 112 (zamba2's
+    own), 5 layers (two groups of 2 and a tail layer), S = 128 in float32:
+    the attention takes the flash kernels, the Mamba-2 layers the scan
+    kernels; full remat runs every forward twice and each backward once.
+    The step's loss and grad_norm and every gradient of ``loss_fn`` equal
+    the CPU's (the plain versions under autograd) within float32 sums."""
+    from repro_torch.data import batch_for_step
+    from repro_torch.models.transformer import n_attn_apps
+    from repro_torch.optim import adamw
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+    cfg = REGISTRY["zamba2-7b"].reduced().replace(
+        n_layers=5, head_dim=112, dtype=torch.float32)
+    apps = n_attn_apps(cfg)
+    batch = batch_for_step(0, global_batch=2, seq=128, vocab=cfg.vocab)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = _f32(init_params(registry.specs(cfg), 0, "cpu"), dev)
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        grads = torch.autograd.grad(registry.loss_fn(params, tb, cfg), flat)
+        counts = (flash_attention.launches, flash_attention.bwd_launches,
+                  linear_scan.launches, linear_scan_bwd.launches)
+        step = make_train_step(cfg, TrainConfig(
+            opt=adamw.AdamWConfig(warmup_steps=1)), device=dev)
+        _, _, m = step(params, adamw.init_state(params), batch)
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         [g.cpu() for g in grads])
+        if dev.type == "cuda":
+            got = (flash_attention.launches, flash_attention.bwd_launches,
+                   linear_scan.launches, linear_scan_bwd.launches)
+            assert tuple(a - b for a, b in zip(got, counts)) == (
+                2 * apps, apps, 2 * cfg.n_layers, cfg.n_layers)
+    (lc, gc, dc), (lp, gp, dp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    assert abs(gc - gp) <= 1e-4 * abs(gp)
+    for a, b in zip(dc, dp):
+        assert _rel_l2(a, b) <= 1e-4
+
+
+def test_moe_layer_on_card_is_repeatable_and_matches_cpu(cuda, no_tf32):
+    """``apply_moe`` of reduced dbrx-132b at capacity factor 0.5 (tokens
+    overflow into the sentinel slot, whose index_add_ order varies): two
+    calls on the card bit-identical in bf16, and the float32 layer equal
+    to the CPU's within float32 sums."""
+    from repro_torch.models import moe
+    cfg = REGISTRY["dbrx-132b"].reduced().replace(capacity_factor=0.5)
+    p = {k: v[0] for k, v in init_params(moe.moe_specs(cfg, 1), 0,
+                                         "cpu").items()}
+    x = torch.randn((2, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    a, b = (moe.apply_moe(pc, x.to(cuda, torch.bfloat16), cfg)
+            for _ in range(2))
+    assert torch.equal(a, b)
+    f32 = cfg.replace(dtype=torch.float32)
+    got = moe.apply_moe({k: v.float() for k, v in pc.items()}, x.to(cuda),
+                        f32)
+    want = moe.apply_moe({k: v.float() for k, v in p.items()}, x, f32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 # (B, T, H, K, V, post, use_u, chunk): rwkv6's form at the model's chunk,

@@ -5,8 +5,9 @@ port's ``attention_ref`` and against the JAX package's gradient of its
 ``attention_ref`` (``jax.vjp``: what XLA takes through the forward, the
 JAX package having no backward kernel); ``flash_attention`` under grad on
 CPU tensors; ``torch.autograd.gradcheck`` of the formulas in float64; the
-backward's input checks and its refusal of double backward.  Inputs are
-made with numpy from a seed."""
+backward's input checks and its refusal of double backward; head dims 96
+and 112 against the JAX package's gradient.  Inputs are made with numpy
+from a seed."""
 import numpy as np
 import pytest
 
@@ -142,19 +143,6 @@ def test_bwd_checks_its_inputs():
     assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_bwd_refuses_head_dim_112(dtype):
-    """The forward takes D = 112 (zamba2-7b's shared block); the backward
-    does not yet, on either device, and its error names the queue item
-    that brings it (hybrid training)."""
-    q, k, v, do = (torch.from_numpy(a).to(dtype)
-                   for a in _inputs(1, 128, 128, 2, 2, 112))
-    o = attention_ref(q, k, v)
-    with pytest.raises(ValueError, match="head dim 112.*ROADMAP.*item 7"):
-        flash_attention_bwd(q, k, v, o, do)
-
-
 # ----------------------------------------------------------------------
 # lse from the forward, delta
 # ----------------------------------------------------------------------
@@ -265,3 +253,48 @@ def test_flash_attention_at_head_dim_96_matches_jax_gradient(causal):
         for g, w in zip(grads, want):
             np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                        atol=JAX_TOL, rtol=JAX_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_dim_112_matches_jax_gradient(causal):
+    """zamba2-7b's shared block (3584 / 32 = 112), GQA 3:1: o from the JAX
+    package's Pallas kernel in interpret mode, then ``flash_attention``
+    under grad on CPU tensors and ``flash_attention_bwd`` on that o against
+    ``jax.vjp`` of the JAX package's attention_ref (JAX cannot
+    differentiate its ``pallas_call``; off the TPU the reference's
+    attention and its gradient are attention_ref's)."""
+    from repro.kernels.flash_attention import flash_attention as j_flash
+    q, k, v, do = _inputs(1, 128, 128, 6, 2, 112, seed=10)
+    o_pallas = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=causal, interpret=True)
+    o, vjp = jax.vjp(lambda a, b, c: j_ref(a, b, c, causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(np.asarray(o_pallas), np.asarray(o),
+                               atol=JAX_TOL, rtol=JAX_TOL)
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    direct = flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(),
+                                 torch.from_numpy(np.array(o_pallas)),
+                                 torch.from_numpy(do), causal=causal)
+    for grads in (got, direct):
+        for g, w in zip(grads, want):
+            assert g.shape == w.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       atol=JAX_TOL, rtol=JAX_TOL)
+
+
+def test_bwd_at_head_dim_112_in_bf16_matches_float32_formulas():
+    """bf16 at D = 112 (the dtype zamba2-7b trains in) takes the same
+    formulas: its gradients within the card's bf16 tolerance (2e-2 rel
+    L2) of the float32 gradients of the same rounded values."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(1, 128, 128, 4, 4, 112, seed=11))
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse)
+    f = [t.float() for t in (q, k, v, do)]
+    want = attention_bwd_ref(f[0], f[1], f[2], attention_ref(*f[:3]), f[3])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert float((g.float() - w).norm() / w.norm()) <= 2e-2

@@ -129,10 +129,11 @@ def test_dense_specs_match_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(
     a for a in ARCHS
-    if J_REGISTRY[a].family not in ("dense", "ssm", "hybrid")))
+    if J_REGISTRY[a].family not in ("dense", "moe", "ssm", "hybrid")))
 def test_other_families_are_not_ported_yet(arch):
-    """moe and encdec; the ssm family (rwkv6-1.6b) and the hybrid one
-    (zamba2-7b) are ported and held against the reference in
+    """encdec; the moe family (moonshot-v1-16b-a3b, dbrx-132b), the ssm
+    one (rwkv6-1.6b) and the hybrid one (zamba2-7b) are ported and held
+    against the reference in tests/test_torch_moe.py,
     tests/test_torch_ssm.py and tests/test_torch_hybrid.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.specs(REGISTRY[arch].reduced())

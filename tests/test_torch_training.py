@@ -1,7 +1,8 @@
 """Training in the port against the JAX package: AdamW (schedule and one
 update), int8 gradient compression (bit-equal), the synthetic data
-pipeline (bit-equal), one train step of reduced olmo-1b and rwkv6-1.6b
-against ``jax.value_and_grad`` plus the reference's AdamW (also with 4
+pipeline (bit-equal), one train step of reduced olmo-1b, rwkv6-1.6b,
+zamba2-7b, moonshot-v1-16b-a3b and dbrx-132b against
+``jax.value_and_grad`` plus the reference's AdamW (olmo-1b also with 4
 microbatches and with compressed gradients), checkpoints that cross
 between the two packages bit-equal, and the port's own counterparts of
 ``tests/test_training.py``: the loss decreases, compression trains, a
@@ -290,8 +291,14 @@ def test_dataset_state_round_trip_matches_reference():
 # one train step against jax.value_and_grad + the reference's AdamW
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-1.6b", "zamba2-7b",
+                                  "moonshot-v1-16b-a3b", "dbrx-132b"])
 def test_train_step_matches_reference_float32(arch):
+    """Every leaf of the gradients, the updated params and both moments.
+    zamba2-7b: two groups of 2 Mamba-2 layers and a shared-block
+    application each, each group rematerialised (full remat, as the
+    reference's scans): the first gradient through the hybrid stack.
+    The moe configs route through top-2 of 4 experts with capacity."""
     jc, tc_ = _cfgs(arch, "float32")
     pj = _j_params(arch, "float32")
     loss_j, grads_j = _j_value_and_grad(arch, "float32")
