@@ -13,9 +13,10 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    kernels from their sources under ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` each, all at once) and print the build seconds and ptxas
    registers and spills (by kernel for the flash kernels at D = 96 and
-   112 and the linear_scan backward); the wgmma flash backward, the wgmma
-   flash forward at D = 96 and 112, the SIMT flash backward at D = 112 and
-   the scan backward's gradient pass must spill nothing; ``cuobjdump
+   112 and the linear_scan backward); the wgmma flash backward (at D =
+   64, 112 and 128), the wgmma flash forward at D = 96 and 112, the float32
+   SIMT flash backward at D = 112 and the scan backward's gradient pass
+   must spill nothing; ``cuobjdump
    -sass`` of the flash forward library and of the flash backward library
    must each show HGMMA (wgmma on the tensor cores) and UTMALDG (TMA
    loads), and of the scan backward HMMA (its 3xTF32 mma.sync); the
@@ -183,8 +184,9 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    rel L2 of dq, dk, dv within 1e-5 in float32 and 2e-2 in bf16, bf16 also
    against the float32 formulas with the float32 o) at ragged small shapes
    and olmo-1b's, llama3-8b's and zamba2-7b's train shapes (bf16 at D =
-   64, 128 on the wgmma backward, the rest on the SIMT one, D = 112 at 6/2
-   heads and both masks and at zamba2-7b's 32/32 heads included); olmo-1b
+   64, 112, 128 on the wgmma backward, the rest on the SIMT one, D = 112
+   at 6/2 heads and both masks and at zamba2-7b's 32/32 heads included);
+   olmo-1b
    at full width and depth (16 layers, d_model 2048, vocab 50304, bf16,
    seed 0) trains 3 steps at B=2, S=2048 through ``make_train_step`` and
    ``FaultTolerantLoop`` (checkpoints off at this size): finite loss and
@@ -227,8 +229,10 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    params' first 9 layers (loss 1e-5, grad_norm 1e-4, every leaf printed
    and held to 1e-4 rel L2 but a_log, w_dt and dt_bias, which swing with
    float32 rounding noise), whose leaves are then held against the route
-   whose scan is float64 as rwkv6's are; the D = 112 backward timed at its train steps' shape
-   beside its plain version, SDPA's backward and the bound; last, the
+   whose scan is float64 as rwkv6's are; the D = 112 backward timed at
+   its train steps' shape beside its plain version, SDPA's backward and
+   the bound, and the ``linear_scan`` backward at ``ZAMBA2_SCAN`` (the
+   call and each pass) beside its plain version and the bound; last, the
    ``linear_scan`` backward timed at rwkv6's shape (the call, each pass,
    by device time) beside its plain version and the bound.
 
@@ -304,7 +308,6 @@ ZAMBA2_BF16_DECODE = 1.13
 ZAMBA2_TRAIN_LAYERS = 27
 ZAMBA2_F32_LAYERS = 9
 ZAMBA2_BWD = (2, 2048, 32, 32, 112, True)
-ZAMBA2_NOISY_LEAVES = ("blocks/a_log", "blocks/w_dt", "blocks/dt_bias")
 # moonshot-v1-16b-a3b's loss_fn at B=2, S=2048 (16/16 heads of 128), and
 # the depth of its float32 copy; dbrx-132b at full width and 2 of its 40
 # layers (full depth, 132e9 parameters, fits no single card)
@@ -391,6 +394,25 @@ def time_ms(fn, reps: int, before=None) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs enqueued behind a
+    device-side sleep (after one warm-up run), so that the host has queued
+    every call before the first starts: the device's own time for the
+    calls back to back, which ``time_ms`` reads only while the host keeps
+    ahead of the device."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms of the device's cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -424,9 +446,9 @@ def phase_build() -> None:
     the flash backward, the linear_scan backward), one nvcc each, started
     together; registers and spills of the flash kernels at D = 96 and 112
     and of the linear_scan backward printed.  Held: the wgmma flash
-    backward, the wgmma flash forward at D = 96 and 112, the SIMT flash
-    backward at D = 112 and the scan backward's gradient pass spill
-    nothing; the SASS of the flash forward
+    backward (instances at D = 64, 112 and 128), the wgmma flash forward at
+    D = 96 and 112, the float32 SIMT flash backward at D = 112 and the scan
+    backward's gradient pass spill nothing; the SASS of the flash forward
     library and of the flash backward library each hold the tensor-core
     product and a TMA load, and the scan backward's holds HMMA (mma.sync
     on the tensor cores); the gradient pass's shared bytes and the blocks
@@ -460,8 +482,15 @@ def phase_build() -> None:
         f"by instance: {spills or 'not rebuilt in this run'}")
     check(all(v == (0, 0) for v in spills.values()), "the wgmma flash "
           f"backward spills registers: {spills}")
-    # the wgmma forward at D = 96, 112, the SIMT backward at D = 112 and
-    # the scan backward's gradient pass
+    if results[3][2]:
+        dims = sorted(int(fn.split("ILi")[1].split("E")[0]) for fn in spills)
+        check(dims == [64, 112, 128], "ptxas listed the wgmma backward at "
+              f"head dims {dims}, not 64, 112 and 128")
+    for line in results[3][2].splitlines():
+        if "Performance Loss" in line or "serialized" in line:
+            log(f"[build] ptxas flash_attention_bwd: {line.strip()}")
+    # the wgmma forward at D = 96, 112, the float32 SIMT backward at
+    # D = 112 and the scan backward's gradient pass
     held = {}
     for (src, _), (_, _, report) in zip(srcs[1:], results[1:]):
         for fn, regs, st, ld in _build.ptxas_table(report):
@@ -476,17 +505,17 @@ def phase_build() -> None:
     if results[1][2] and results[3][2] and results[4][2]:
         n = [sum(part in fn for fn in held)
              for part in ("flash_wgmma", "9flash_bwdI", "lsb_grad")]
-        check(n == [4, 2, 4], f"ptxas listed {sorted(held)}, not the four "
-              "flash_wgmma_kernel<96 or 112, BK>, the two flash_bwd<T, 112> "
-              "and the four lsb_grad<T, VEC> instances")
+        check(n == [4, 1, 4], f"ptxas listed {sorted(held)}, not the four "
+              "flash_wgmma_kernel<96 or 112, BK>, the one flash_bwd<float, "
+              "112> and the four lsb_grad<T, VEC> instances")
         check(all(v == (0, 0) for v in held.values()), "the D = 96 or 112 "
               "wgmma forward, the D = 112 SIMT backward or the scan "
               f"backward's gradient pass spills: {held}")
     else:
         log("[build] a flash library or the scan backward library was not "
             "rebuilt in this run (no ptxas report): the spill checks of the "
-            "D = 96 and 112 wgmma forwards, the D = 112 SIMT backward and "
-            "of lsb_grad are not held")
+            "D = 96 and 112 wgmma forwards, the wgmma backward's head dims, "
+            "the D = 112 SIMT backward and of lsb_grad are not held")
     sass_check(results[1][0])
     sass_check(results[3][0])
     sass_check(results[4][0], need=("HMMA",))
@@ -2334,7 +2363,7 @@ def scan_bwd_inputs(shape, dtype, device, given: bool):
     return r, k, v, lw, u, s0 if given else None, do, dS
 
 
-def phase_scan_bwd_vs_plain(device) -> float:
+def phase_scan_bwd_vs_plain(device) -> dict:
     """The backward kernel (``linear_scan_bwd`` on the forward kernel's
     states) against ``linear_scan_bwd_ref`` at ``SCAN_BWD_CASES``, each
     gradient by rel L2: float32 inputs within 1e-3 of the float32 plain
@@ -2343,11 +2372,11 @@ def phase_scan_bwd_vs_plain(device) -> float:
     inputs within 1e-2 of the float32 formulas on the same rounded inputs;
     log_w's gradient exactly 0 where the clamp binds; two calls
     bit-identical.  Returns the largest absolute error against the plain
-    version."""
+    version by shape."""
     from repro_torch.kernels.linear_scan import (linear_scan_bwd,
                                                  linear_scan_bwd_ref,
                                                  linear_scan_with_states)
-    worst = 0.0
+    worst: dict[tuple, float] = {}
     for shape, dt, given in SCAN_BWD_CASES:
         *_, post, _, chunk = shape
         ins = scan_bwd_inputs(shape, dt, device, given)
@@ -2380,7 +2409,8 @@ def phase_scan_bwd_vs_plain(device) -> float:
             check(got[i].dtype == (dt if i < 3 else torch.float32),
                   f"linear_scan_bwd {shape}: {name} in {got[i].dtype}")
             e_kp = rel_l2(got[i], plain[i].double())
-            worst = max(worst, float((got[i].float() - plain[i]).abs().max()))
+            worst[shape] = max(worst.get(shape, 0.0), float(
+                (got[i].float() - plain[i]).abs().max()))
             if exact is None:
                 parts.append(f"{name} {e_kp:.3g}")
                 ok = ok and e_kp <= 1e-2
@@ -2420,20 +2450,22 @@ def scan_bwd_work(shape, given: bool) -> tuple[int, int]:
     return least, nbytes
 
 
-def scan_bwd_record(device, launches: int, max_abs_err: float,
-                    name: str) -> dict:
-    """The backward at rwkv6-1.6b's shape as its train step runs it
-    (float32 inputs, u, no state0 or dS_T; the forward kernel's states):
-    the whole call and each pass alone (CUDA events; ``phase_train``'s
-    profile gives each pass's device time in the train step), the plain
-    version's time and the bound."""
+def scan_bwd_record(device, launches: int, max_abs_err: float, name: str,
+                    shape=RWKV_SCAN,
+                    record: str = "linear_scan_bwd") -> dict:
+    """The backward at ``shape`` (rwkv6-1.6b's by default; zamba2-7b's
+    ``ZAMBA2_SCAN``, post-update, no u) as its train step runs it (float32
+    inputs, no state0 or dS_T; the forward kernel's states): the whole
+    call and each pass alone (CUDA events; ``phase_train``'s profile gives
+    each pass's device time in the train step), the plain version's time
+    and the bound; ``record`` names the record."""
     from repro_torch.kernels.linear_scan import (linear_scan_bwd,
                                                  linear_scan_bwd_ref,
                                                  linear_scan_with_states)
     from repro_torch.kernels.linear_scan.linear_scan import (_bwd_library,
                                                              bwd_args)
-    *_, post, _, chunk = RWKV_SCAN
-    r, k, v, lw, u, s0, do, dS = scan_bwd_inputs(RWKV_SCAN, torch.float32,
+    *_, post, _, chunk = shape
+    r, k, v, lw, u, s0, do, dS = scan_bwd_inputs(shape, torch.float32,
                                                  device, False)
     _, _, states = linear_scan_with_states(r, k, v, lw, u, s0, chunk=chunk,
                                            post_update=post)
@@ -2444,14 +2476,14 @@ def scan_bwd_record(device, launches: int, max_abs_err: float,
     ms = time_ms(call, 20)
     plain_ms = time_ms(lambda: linear_scan_bwd_ref(
         r, k, v, lw, u, s0, do, dS, chunk=chunk, post_update=post), 3)
-    flops, nbytes = scan_bwd_work(RWKV_SCAN, False)
+    flops, nbytes = scan_bwd_work(shape, False)
     mem_bw = BW_PCIE if "PCIe" in name else BW_SXM
     # the products run on the tensor cores as 3xTF32 (three TF32 products
     # for each at float32 accuracy): the operations' rate is a third of
     # TF32's, 165 TFLOP/s, not float32's 67 outside the tensor cores
     ops_ms, bytes_ms = flops / (PEAK_TF32 / 3) * 1e3, nbytes / mem_bw * 1e3
     bound = max(ops_ms, bytes_ms)
-    log(f"[kernel] linear_scan_bwd {RWKV_SCAN} float32: kernel {ms:.4f} ms, "
+    log(f"[kernel] linear_scan_bwd {shape} float32: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms (operations "
         f"{ops_ms:.4f}: {flops / 1e9:.6g} GFLOP token by token at 165 "
         f"TFLOP/s, 3xTF32 on the tensor cores; float32 on the CUDA cores "
@@ -2472,10 +2504,11 @@ def scan_bwd_record(device, launches: int, max_abs_err: float,
     for which, pname in enumerate(("reverse state", "reverse hand-off",
                                    "gradient")):
         p_ms = time_ms(lambda: lib.linear_scan_bwd_pass(which, *args), 20)
-        log(f"[kernel] linear_scan_bwd {pname} pass alone: {p_ms:.4f} ms")
+        log(f"[kernel] linear_scan_bwd {shape} {pname} pass alone: "
+            f"{p_ms:.4f} ms")
     del outs, scratch, states
     return {
-        "name": "linear_scan_bwd", "route": "cuda",
+        "name": record, "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/"
                   "linear_scan_bwd.cu",
         "replaces": "src/repro/kernels/linear_scan/linear_scan.py:84",
@@ -2643,8 +2676,9 @@ def phase_flash_bwd_vs_plain(device) -> dict:
 
 
 def flash_bwd_times(shape, device, name: str) -> dict:
-    """The backward kernel (and each of its kernels' device time, the
-    delta pass apart), its plain version
+    """The backward kernel (by events around the calls, again with the
+    calls queued behind a device sleep, ``queued_ms``, and each of its
+    kernels' device time, the delta pass apart), its plain version
     and SDPA's backward (through autograd, on the same inputs) at
     ``shape`` in bf16, and the bound: 2.5 x the causal forward's
     operations over the bf16 tensor-core peak, or the bytes of q, k, v,
@@ -2659,6 +2693,8 @@ def flash_bwd_times(shape, device, name: str) -> dict:
     q, k, v, o, do, lse = bwd_inputs(shape, torch.bfloat16, device, seed=5)
     ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
                                              causal=causal), 10)
+    queued = queued_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                                   causal=causal), 10)
     parts = device_ms_by_kernel(lambda: flash_attention_bwd(
         q, k, v, o, do, lse=lse, causal=causal), 3)
     plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, do,
@@ -2692,6 +2728,9 @@ def flash_bwd_times(shape, device, name: str) -> dict:
         f"at 989 TFLOP/s; bytes {bytes_ms:.4f}: {nbytes / 1e6:.6g} MB): "
         f"{bound / ms:.4f} of the bound; kernel / SDPA backward "
         f"{ms / library_ms:.4f}")
+    log(f"[kernel] flash_attention_bwd {shape} bf16: {queued:.4f} ms a call "
+        f"with the 10 calls queued behind a device sleep (the device's time "
+        f"alone, the wrapper's memset and cast included)")
     log(f"[kernel] flash_attention_bwd {shape} bf16, device time a call by "
         f"kernel (torch.profiler, 3 calls): " + "; ".join(
             f"{t:.4f} ms {n[:60]}" for n, t in parts.items()))
@@ -2915,10 +2954,81 @@ def plain_routes(cfg) -> list[tuple]:
     return {"ssm": [scan], "hybrid": [attn, scan]}.get(cfg.family, [attn])
 
 
+# the farthest from the -60/c clamp a log_w element may lie where its route
+# takes the recording route's side of it (ClampSides): in zamba2-7b's
+# float32 copy such elements lay within 1.4e-6 of it in six runs of
+# scripts/zamba2_clamp_sides.py (H100 80GB HBM3, 700 W)
+CLAMP_TIE = 1e-4
+
+
+class ClampSides:
+    """The side of the -60/c clamp that each log_w element takes in each
+    scan call of one route (``record``), imposed on the scan calls of other
+    routes (``adopt``, each in the same order).  The clamp's gradient jumps
+    from 1 to 0 there: an element within float32 noise of -60/c, on one
+    side on one route and on the other on another, moved every gradient
+    leaf of zamba2-7b's float32 copy by up to 3.2e-4 rel L2 and a_log by up
+    to 2.2e-3 (``scripts/zamba2_clamp_sides.py``: most of its decay
+    elements are clamped, and a few lie that close to -60/c in most runs).
+    Adopted, such an element is exactly -60/c, with no gradient where the
+    recording route clamped it and with the gradient passing where it did
+    not.  ``adopted`` counts them over the
+    adopting routes, ``gap`` is the farthest of them from -60/c, and
+    ``held()`` says that each adopting route made the recorded calls and
+    that ``gap`` is within ``CLAMP_TIE``."""
+
+    def __init__(self):
+        self.sides, self.calls, self.adopted, self.gap = [], [], 0, 0.0
+
+    def record(self, op):
+        def f(r, k, v, log_w, u=None, state0=None, *, chunk: int = 64,
+              post_update: bool = False):
+            lo = float(np.float32(-60.0 / min(chunk, r.shape[1])))
+            self.sides.append(log_w.detach() < lo)
+            return op(r, k, v, log_w, u, state0, chunk=chunk,
+                      post_update=post_update)
+        return f
+
+    def adopt(self, op):
+        at = len(self.calls)
+        self.calls.append(0)
+
+        def f(r, k, v, log_w, u=None, state0=None, *, chunk: int = 64,
+              post_update: bool = False):
+            lo = float(np.float32(-60.0 / min(chunk, r.shape[1])))
+            i = self.calls[at]
+            check(i < len(self.sides), "a route made more scan calls than "
+                  "the route whose clamp sides it takes")
+            want, raw = self.sides[i], log_w.detach()
+            self.calls[at] += 1
+            check(want.shape == raw.shape, "the routes' scan calls differ")
+            flip = want != (raw < lo)
+            n = int(flip.sum())
+            if n:
+                self.adopted += n
+                self.gap = max(self.gap, float((raw[flip] - lo).abs().max()))
+                pinned = torch.full_like(raw, lo)
+                passing = log_w - raw + lo
+                log_w = torch.where(flip, torch.where(want, pinned, passing),
+                                    log_w)
+            return op(r, k, v, log_w, u, state0, chunk=chunk,
+                      post_update=post_update)
+        return f
+
+    def held(self) -> bool:
+        return all(c == len(self.sides) for c in self.calls) and \
+            self.gap <= CLAMP_TIE
+
+    def line(self) -> str:
+        return (f"{self.adopted} log_w elements over {len(self.calls)} "
+                f"route(s) of {len(self.sides)} scan calls took the other "
+                f"route's side of the -60/c clamp, the farthest "
+                f"{self.gap:.3g} from it (limit {CLAMP_TIE})")
+
+
 def phase_train_plain_route(cfg, params, device, loss_tol: float,
                             leaf_tol: float | None = None,
-                            norm_tol: float | None = None,
-                            noisy_leaves=()) -> None:
+                            norm_tol: float | None = None) -> None:
     """One step's loss and gradients (``registry.loss_fn`` and
     ``torch.autograd.grad``) on the kernel route, which must launch
     exactly ``train_launches(cfg)``'s kernels, against the route with the
@@ -2927,9 +3037,12 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
     ``attention_ref``, ``scan_op`` onto ``linear_scan_ref``) at
     ``TRAIN_SHAPE``: the loss within ``loss_tol`` relative; every gradient
     leaf's rel L2 printed and held to ``leaf_tol``, the global norm to
-    ``norm_tol``, where given; the ``noisy_leaves`` (those whose gradient
-    swings with float32 rounding noise, held by the caller through
-    ``phase_train_witness``) are printed and not held to ``leaf_tol``."""
+    ``norm_tol``, where given.  In float32 the plain route's scan takes
+    the kernel route's side of the -60/c clamp in every element
+    (``ClampSides``); those whose side it changes must lie within
+    ``CLAMP_TIE`` of it.  In bf16 the routes' log_w lie bf16 roundings
+    apart (zamba2-7b's: 4.8e6 elements on other sides, up to 0.049 from
+    the clamp), far from a tie, and the loose bf16 limits hold them."""
     from repro_torch.models import registry
     from repro_torch.optim.adamw import global_norm
     per_step, _ = train_launches(cfg)
@@ -2938,27 +3051,40 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
     batch = llm_batch(cfg, device, B, S, seed=3)
     names = [n for n, _ in tree_items(params)]
     flat = [p for _, p in tree_items(params)]
+    sides = ClampSides() if cfg.dtype == torch.float32 else None
 
     def grads():
         loss = registry.loss_fn(params, batch, cfg)
         g = torch.autograd.grad(loss, flat)
         return float(loss.detach()), g
 
+    def on(route):
+        kept = [getattr(m, a) for m, a, _ in routes]
+        for m, a, op in route:
+            setattr(m, a, op)
+        try:
+            return grads()
+        finally:
+            for (m, a, _), w in zip(routes, kept):
+                setattr(m, a, w)
+
+    kernel = [(m, a, sides.record(getattr(m, a)) if sides and a == "scan_op"
+               else getattr(m, a)) for m, a, _ in routes]
+    plain = [(m, a, sides.adopt(op) if sides and a == "scan_op" else op)
+             for m, a, op in routes]
     c0 = launch_counts()
-    loss_k, g_k = grads()
+    loss_k, g_k = on(kernel)
     c1 = launch_counts()
     ran = {n: c1[n] - c0[n] for n in c0}
     check(ran == {n: per_step.get(n, 0) for n in c0}, f"the kernel route "
           f"launched {ran}, not {per_step}")
-    wrappers = [getattr(m, a) for m, a, _ in routes]
-    for m, a, plain in routes:
-        setattr(m, a, plain)
-    try:
-        loss_p, g_p = grads()
-    finally:
-        for (m, a, _), w in zip(routes, wrappers):
-            setattr(m, a, w)
+    loss_p, g_p = on(plain)
     check(launch_counts() == c1, "the plain route launched a kernel")
+    if sides and sides.calls:  # float32 routes that hold a scan
+        log(f"[train-plain-route] {cfg.name}, the plain route on the kernel "
+            f"route's clamp sides: {sides.line()}")
+        check(sides.held(), "the plain route's scan calls or their clamp "
+              "sides are not the kernel route's")
     rel = abs(loss_k - loss_p) / abs(loss_p)
     nk, np_ = float(global_norm(g_k)), float(global_norm(g_p))
     nrel = abs(nk - np_) / np_
@@ -2969,15 +3095,11 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
         f"{loss_k:.8g}, plain {loss_p:.8g}, rel err {rel:.3g} (limit "
         f"{loss_tol}); grad_norm kernel {nk:.8g}, plain {np_:.8g}, rel err "
         f"{nrel:.3g}{'' if norm_tol is None else f' (limit {norm_tol})'}")
-    held = [e for n, e in leaf.items() if n not in noisy_leaves]
     log("[train-plain-route]   rel L2 by leaf: " + ", ".join(
         f"{n} {e:.3g}" for n, e in leaf.items()) +
-        ("" if leaf_tol is None else f" (limit {leaf_tol}") +
-        ("" if leaf_tol is None or not noisy_leaves else
-         f" but for {', '.join(noisy_leaves)}") +
-        ("" if leaf_tol is None else ")"))
+        ("" if leaf_tol is None else f" (limit {leaf_tol})"))
     check(rel <= loss_tol and (norm_tol is None or nrel <= norm_tol) and
-          (leaf_tol is None or max(held) <= leaf_tol),
+          (leaf_tol is None or max(leaf.values()) <= leaf_tol),
           "the kernel route's training gradients disagree with the plain "
           "route's")
 
@@ -3157,7 +3279,9 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=(),
     plain route and of its two noisy copies, and the global norm the same
     way.  Printed: each leaf's rel L2 of the kernel route to the plain
     route, and by route the grad_norm and the largest leaf rel L2 to the
-    witness, to the kernel route and to the plain route."""
+    witness, to the kernel route and to the plain route.  Every route's
+    scan takes the witness's side of the -60/c clamp in every element
+    (``ClampSides``, held)."""
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
     from repro_torch.kernels.linear_scan import ops as scan_ops
     from repro_torch.models import layers, registry
@@ -3185,7 +3309,9 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=(),
         names = [n for n, _ in tree_items(params)]
         flat = [p for _, p in tree_items(params)]
         grads, loss, norm, moved, zero, to = {}, {}, {}, {}, {}, {}
+        sides = ClampSides()
         for route, op in routes.items():
+            op = sides.record(op) if route == "witness" else sides.adopt(op)
             scan_ops.scan_op = op
             if plain_attn is not None and not route.startswith("kernel"):
                 layers.flash_attention = plain_attn
@@ -3236,6 +3362,10 @@ def phase_train_witness(cfg, device, cases: dict, live_decay=(),
         log(f"[train-witness] {cfg.name} float32, {label}, B={B} S={S}: loss "
             f"kernel {loss['kernel']:.8g}, plain {loss['plain']:.8g}, "
             f"witness (the scan in float64) {loss['witness']:.8g}; {decay}")
+        log(f"[train-witness]   every route on the witness's clamp sides: "
+            f"{sides.line()}")
+        check(sides.held(), f"{label}: the routes' scan calls or their "
+              "clamp sides are not the witness's")
         log("[train-witness]   by route: grad_norm; largest leaf rel L2 to "
             "the witness, the kernel route, the plain route: " + "; ".join(
                 f"{r} {norm[r]:.8g}; " + ", ".join(
@@ -3351,8 +3481,8 @@ def cut_layers(params, n: int) -> dict:
     return {k: cut(v) if k == "blocks" else v for k, v in params.items()}
 
 
-def phase_zamba2_train(device, card: str, name: str,
-                       bwd_abs: float) -> dict:
+def phase_zamba2_train(device, card: str, name: str, bwd_abs: float,
+                       scan_bwd_abs: float) -> list[dict]:
     """zamba2-7b at full width and ``ZAMBA2_TRAIN_LAYERS`` layers trains
     (``phase_train``: 2 x 4 flash forwards at D = 112, 4 flash backwards,
     2 x 27 scan forwards and 27 scan backwards a step, each group of 6
@@ -3362,12 +3492,14 @@ def phase_zamba2_train(device, card: str, name: str,
     ``linear_scan_ref`` under autograd, in bf16 (loss 1e-3, grad_norm
     1e-2) and on a float32 copy of the trained params' first
     ``ZAMBA2_F32_LAYERS`` layers (one group and the tail: loss 1e-5,
-    grad_norm 1e-4, every leaf printed and held to 1e-4 rel L2 but
-    ``ZAMBA2_NOISY_LEAVES``), whose leaves are then held
-    against the route whose scan is float64 (``phase_train_witness``).
+    grad_norm 1e-4, every leaf printed and held to 1e-4 rel L2, the plain
+    route's scan on the kernel route's sides of the -60/c clamp), whose
+    leaves are then held against the route whose scan is float64
+    (``phase_train_witness``, every route on the witness's clamp sides).
     Returns the D = 112 backward's record, timed at ``ZAMBA2_BWD`` with
     ``bwd_abs``, its largest absolute error against the plain version at
-    that shape."""
+    that shape, and the scan backward's, timed at ``ZAMBA2_SCAN`` with
+    ``scan_bwd_abs``, the same at that shape."""
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels.flash_attention import attention_ref
     t0 = time.perf_counter()
@@ -3379,15 +3511,15 @@ def phase_zamba2_train(device, card: str, name: str,
     params32 = f32_params(cut_layers(params, ZAMBA2_F32_LAYERS))
     del params
     torch.cuda.empty_cache()
-    # every leaf is held to 1e-4 rel L2 of the plain routes but the three
-    # that feed the decay, which swing past it as far as noise of float32's
-    # unit roundoff moves the plain route (a_log 1.5e-4 to 5.0e-4, w_dt
-    # 3.4e-5 to 1.2e-4, dt_bias 3.1e-5 to 1.0e-4 in three runs on an H100
-    # 80GB HBM3 at 700 W): those are printed, and all leaves are held
-    # against the route whose scan is float64, as rwkv6-1.6b's
+    # the routes take one route's side of the -60/c clamp (ClampSides):
+    # without it, an element that lies on the clamp within float32 noise
+    # and falls on either side moved every leaf by up to 3.2e-4 rel L2 and
+    # a_log by up to 2.2e-3, and the 1e-4 rule, even with a_log, w_dt and
+    # dt_bias left out, failed in three of six runs of
+    # scripts/zamba2_clamp_sides.py on an H100 80GB HBM3 at 700 W; with it
+    # no leaf read above 1.15e-5 in those six
     phase_train_plain_route(cut, params32, device, loss_tol=1e-5,
-                            leaf_tol=1e-4, norm_tol=1e-4,
-                            noisy_leaves=ZAMBA2_NOISY_LEAVES)
+                            leaf_tol=1e-4, norm_tol=1e-4)
     phase_train_witness(cut, device, {
         f"the trained params' first {ZAMBA2_F32_LAYERS} layers":
             lambda: params32}, decay_leaves=(), plain_attn=attention_ref)
@@ -3397,29 +3529,37 @@ def phase_zamba2_train(device, card: str, name: str,
     log(f"[train] zamba2-7b {time.perf_counter() - t0:.1f} s; launches in "
         "the train steps: " + ", ".join(f"{n} {c}" for n, c in
                                         launches.items()))
-    return {
+    return [{
         "name": "flash_attention_bwd (D=112)", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:78",
         "design": "no TPU counterpart (XLA's gradient of the forward): the "
-                  "delta pass (16 lanes a bf16 row of 14 parts), then the "
-                  "float32 SIMT flash_bwd<bf16, 112> (64 keys a block, K/V "
-                  "widened to float32 in shared memory, dQ by float32 "
-                  "atomics) on the wgmma forward's lse; times at zamba2-7b's "
-                  f"{ZAMBA2_BWD}",
+                  "delta pass (16 lanes a bf16 row of 14 parts), then "
+                  "flash_bwd_wgmma_kernel<112> on the wgmma forward's lse: "
+                  "the D = 128 tiles, TMA's second 64-column box three "
+                  "quarters inside the tensor (zeros counted by the "
+                  "mbarrier), S^T and dP^T over 7 k16 steps, dV and dK as "
+                  "m64n112k16, dQ split into two 64-column boxes "
+                  "(m64n64k16), the second's zero-filled columns not added:"
+                  " no float2 atomic past column 112; times at "
+                  f"zamba2-7b's {ZAMBA2_BWD}",
         "launches": launches["flash_attention_bwd"],
         "max_abs_err": bwd_abs, **t,
-    }
+    }, scan_bwd_record(device, launches["linear_scan_bwd"], scan_bwd_abs,
+                       name, ZAMBA2_SCAN, "linear_scan_bwd (zamba2-7b)")]
 
 
-def phase_training(device, card: str, name: str) -> tuple[list, int]:
+def phase_training(device, card: str, name: str,
+                   scan_bwd_abs: dict) -> tuple[list, int]:
     """The training slices: the flash backward, olmo-1b's train steps and
     their routes, a checkpoint round trip; then rwkv6-1.6b's train steps
     (the linear_scan backward) and their routes, and the train CLI on
     rwkv6; then zamba2-7b's (``phase_zamba2_train``).  Returns the flash
-    backward's records (olmo-1b's shape, then zamba2-7b's at D = 112) and
-    the linear_scan backward's launches in rwkv6's train steps."""
+    backward's records (olmo-1b's shape, then zamba2-7b's at D = 112), the
+    scan backward's at zamba2-7b's shape (``scan_bwd_abs``: the largest
+    absolute error against the plain version by shape) and the
+    linear_scan backward's launches in rwkv6's train steps."""
     from repro_torch.configs import REGISTRY
     t0 = time.perf_counter()
     bwd_abs = phase_flash_bwd_vs_plain(device)
@@ -3457,8 +3597,8 @@ def phase_training(device, card: str, name: str) -> tuple[list, int]:
     log(f"[train] rwkv6-1.6b {time.perf_counter() - t1:.1f} s; linear_scan "
         f"launches in the train steps: {launches['linear_scan']} forward, "
         f"{launches['linear_scan_bwd']} backward")
-    records.append(phase_zamba2_train(device, card, name,
-                                      bwd_abs[ZAMBA2_BWD]))
+    records += phase_zamba2_train(device, card, name, bwd_abs[ZAMBA2_BWD],
+                                  scan_bwd_abs[ZAMBA2_SCAN])
     log(f"[train] the training phase {time.perf_counter() - t0:.1f} s")
     return records, launches["linear_scan_bwd"]
 
@@ -3623,10 +3763,11 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     records.append(scan_record(device, scan_launches, scan_abs, name))
-    flash_bwd, scan_bwd_launches = phase_training(device, card, name)
+    flash_bwd, scan_bwd_launches = phase_training(device, card, name,
+                                                  scan_bwd_abs)
     records += flash_bwd
-    records.append(scan_bwd_record(device, scan_bwd_launches, scan_bwd_abs,
-                                   name))
+    records.append(scan_bwd_record(device, scan_bwd_launches,
+                                   max(scan_bwd_abs.values()), name))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": records}))
     log(card)

@@ -100,12 +100,11 @@
 //    32 (only the .reduced() configs): flash_kernel, float32 FMAs on the
 //    CUDA cores.  D need not be a power of two, only a multiple of 16 (each
 //    thread's D / 16 accumulator columns; at BQ = 128 the tiles take
-//    132,352 bytes of shared memory at D = 96, 148,736 at 112).  The
-//    backward has no D = 112 instance (the hybrid family is not trained on
-//    the card yet).  The D = 96 backward stays on
-//    the SIMT flash_bwd in both dtypes (flash_attention_bwd.cu) and takes
-//    its lse from whichever forward ran.  q, k and v are
-//    widened to float32 in shared memory and both
+//    132,352 bytes of shared memory at D = 96, 148,736 at 112).  In the
+//    backward (flash_attention_bwd.cu) bf16 at D = 112 runs on its wgmma
+//    kernel, float32 at 112 and D = 96 in both dtypes on its SIMT
+//    flash_bwd; each takes its lse from whichever forward ran.  q, k and v
+//    are widened to float32 in shared memory and both
 //    products are float32 multiply-adds: no TF32, no bf16 tensor-core
 //    product, so float32 meets the reference's 2e-6.  One block of 256
 //    threads owns one (q tile, head, batch) and loops over the K/V tiles

@@ -16,14 +16,14 @@
 //   0. flash_bwd_delta: delta = rowsum(do * o) in float32, (B, Hq, Sq),
 //      16 bytes of each a thread (memory-bound: o and do read once);
 //   then, by (dtype, D) alone, one of
-//   1. bfloat16 at D = 64 or 128 (every full-width model of the repo):
+//   1. bfloat16 at D = 64, 112 (zamba2-7b's shared block) or 128:
 //      flash_bwd_wgmma_kernel, on the tensor cores; Sk a multiple of 128,
 //      Sq of 64;
 //   2. float32 (D = 16, 32, 64, 96, 112, 128) and bfloat16 at D = 16, 32
-//      (only the .reduced() configs), 96 (phi-3-vision-4.2b) or 112
-//      (zamba2-7b's shared block), whose forwards run on the wgmma kernel
-//      (the backward has no wgmma route at D = 96 or 112 yet): the float32
-//      SIMT flash_bwd; Sq and Sk multiples of 64.
+//      (only the .reduced() configs) or 96 (phi-3-vision-4.2b, whose
+//      forward runs on the wgmma kernel; the backward has no wgmma route
+//      at D = 96 yet): the float32 SIMT flash_bwd; Sq and Sk multiples of
+//      64.
 // There is no fallback from one to the other.
 //
 // Both compute, per (q row, key) kept by the mask (causal keeps
@@ -48,15 +48,28 @@
 //    threads) per (128-key tile, KV head, batch), launched heaviest first
 //    under the causal mask.  Each warpgroup owns 64 of the keys: the M of
 //    one wgmma.
-//    * K and V (bf16, 128-byte swizzled, D = 128 as two 64-column boxes)
-//      are loaded once by TMA.  The q tiles (64 rows) that see the keys
+//    * K and V (bf16, 128-byte swizzled, D = 112 and 128 as two 64-column
+//      boxes) are loaded once by TMA.  The q tiles (64 rows) that see the keys
 //      (causal: q0 + 63 >= k0) come with their dO tiles in a two-stage
 //      TMA ring, lse and delta (64 floats each, bulk copies) beside them,
 //      all completing on one mbarrier per stage; thread 0 refills a stage
 //      as soon as both warpgroups are past their last read of it.
+//    * D = 112, as the forward: the maps keep the real inner dimension
+//      (rows of 224 bytes), so the box at column 64 is three quarters
+//      inside the tensor and TMA fills its columns 112-127 with zeros.
+//      The mbarrier counts the whole box, fill included, so every tile
+//      and every expected byte count is taken at DP = 128 columns (a
+//      count at 112 would never complete); the shared memory is the
+//      D = 128 instance's.  No product reads the fill: S^T and dP^T run
+//      7 k16 steps and dV and dK are m64n112k16.  dQ's second warpgroup
+//      runs m64n64k16 on the whole second box and adds only its 48 real
+//      columns: the 16 zero columns add 1/35 to the products, where a
+//      branch to m64n48k16 made ptxas serialize every wgmma of the kernel
+//      (scripts/ablate_flash_bwd.py times both).
 //    * Per q tile, each warpgroup, all bf16 x bf16 into float32:
-//        S^T = K.Q^T and dP^T = V.dO^T: wgmma m64n64k16, A and B both
-//          K-major from shared memory (the keys are the rows);
+//        S^T = K.Q^T and dP^T = V.dO^T: wgmma m64n64k16 over D / 16 k16
+//          steps, A and B both K-major from shared memory (the keys are
+//          the rows);
 //        P^T = exp2(scale log2(e) S^T - log2(e) lse), masked only on
 //          tiles that cross the diagonal; dS^T = P^T (dP^T - delta);
 //        dV += P^T.dO and dK += dS^T.Q: wgmma m64nDk16, A = P^T or dS^T
@@ -68,19 +81,21 @@
 //          same swizzle), and after one __syncthreads
 //        dQ += dS.K: wgmma m64n64k16 with A = dS read transposed from the
 //          dS^T buffer and B = K (keys x D), MN-major: both transpose bits
-//          set.  At D = 128 the warpgroups split D (each 64 columns over
-//          all 128 keys); at D = 64 they split the keys (each its own 64,
-//          all 64 columns), so both add into the same dq rows.  dq is
-//          added to global memory with vector float2 atomics (red).
+//          set.  At D = 112 and 128 the warpgroups split D (a 64-column
+//          box each, over all 128 keys); at D = 64 they split the keys
+//          (each its own 64, all 64 columns), so both add into the same
+//          dq rows.  dq is added to global memory with vector float2
+//          atomics (red), never at a column >= D: dq's rows are D floats,
+//          and at D = 112 columns 112-127 would be the next head's.
 //    * dK (times scale) and dV are rounded to bf16 and stored once.
 //    * Precision: P and dS are rounded to bf16 for the three products
 //      that take them (relative error <= 2^-9 an element), as the
 //      forward's P; everything else accumulates in float32.  The gradient
 //      error this adds is far inside the bf16 tolerance (2e-2 rel L2).
-//    * Registers: dV and dK take D / 2 floats a thread each, S^T and dP^T
-//      32 each, the dQ slice 32 once S^T and dP^T are packed; at D = 128
-//      that peaks near 200 of the 255 a thread may hold (ptxas -v reports
-//      the spills: none expected).
+//    * Registers: dV and dK take D / 2 floats a thread each (56 at
+//      D = 112), S^T and dP^T 32 each, the dQ slice 32 once S^T and dP^T
+//      are packed; at D = 128 that peaks near 200 of the 255 a thread may
+//      hold (ptxas -v reports the spills: none expected).
 //    What bounds this design below the bound: one thread issues the loads
 //    and the warpgroups wait on them (no producer warp, no setmaxnreg), a
 //    warpgroup's products run one after the other (no overlap of the
@@ -198,7 +213,7 @@ int launch_delta(const void* o, const void* dout, float* delta, int B,
 }
 
 // ---------------------------------------------------------------------
-// 2. the SIMT kernel (float32; bf16 at D = 16, 32, 96, 112)
+// 2. the SIMT kernel (float32; bf16 at D = 16, 32, 96)
 // ---------------------------------------------------------------------
 
 constexpr int TX = 16;  // threads along a row of a tile
@@ -417,7 +432,7 @@ int launch_simt(const Args& a) {
 }
 
 // ---------------------------------------------------------------------
-// 1. the Hopper kernel (bf16 at D = 64, 128): TMA, mbarriers, wgmma.
+// 1. the Hopper kernel (bf16 at D = 64, 112, 128): TMA, mbarriers, wgmma.
 // The helpers are this file's own copies of the forward's
 // (csrc/flash_attention.cu), so each library builds from one source.
 // ---------------------------------------------------------------------
@@ -555,6 +570,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
@@ -593,6 +638,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 112) wgmma_rs_n112(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
@@ -609,9 +655,13 @@ constexpr int ROWS8 = 16 * BOX_ROW;  // a k16 step down an MN-major tile
 
 template <int D>
 struct BwdTile {
-  static constexpr int NDB = D / 64;          // 64-column boxes
-  static constexpr int KV = W_BK * D * 2;     // the K or the V tile
-  static constexpr int QT = W_BQ * D * 2;     // a Q or a dO tile
+  // 64-column boxes a row, rounded up: at D = 112 the second box is three
+  // quarters inside the tensor, TMA fills its columns 112-127 with zeros
+  // and the mbarrier counts them, so every tile is sized at DP columns
+  static constexpr int NDB = (D + 63) / 64;
+  static constexpr int DP = 64 * NDB;         // columns a tile row holds
+  static constexpr int KV = W_BK * DP * 2;    // the K or the V tile
+  static constexpr int QT = W_BQ * DP * 2;    // a Q or a dO tile
   static constexpr int DS = W_BK * W_BQ * 2;  // dS^T, keys x q rows, bf16
   // every tile starts on a 1024-byte boundary (the swizzle atom)
   static constexpr int K_OFF = 0;
@@ -622,9 +672,12 @@ struct BwdTile {
   static constexpr int STAT_OFF = DS_OFF + 2 * DS;  // lse[2][64], delta[2][64]
   static constexpr int STAT = W_BQ * 4;
   static constexpr int SMEM = STAT_OFF + 4 * STAT + 1024;  // + alignment
-  // dQ: D = 128 splits the columns (64 a warpgroup, over all 128 keys),
-  // D = 64 the keys (64 a warpgroup, all 64 columns); N = 64 either way
-  static constexpr int DQ_KEYS = D == 128 ? W_BK : 64;
+  // dQ: D = 112 and 128 split the columns (a 64-column box a warpgroup,
+  // over all 128 keys; at 112 the second box holds 48 real columns), D =
+  // 64 the keys (64 a warpgroup, all 64 columns); N = 64 every way
+  static constexpr int DQ_KEYS = D > 64 ? W_BK : 64;
+  // columns of dq the second warpgroup adds (the first adds 64)
+  static constexpr int DQ_N1 = D > 64 ? D - 64 : 64;
 };
 
 template <int D>
@@ -647,7 +700,10 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   float* stats = reinterpret_cast<float*>(smem + C::STAT_OFF);
 
   const int tid = threadIdx.x;
-  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it is
+  // warp-uniform (dq's column clip branches on it)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid / 32) % 4, lane = tid % 32;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * W_BK;  // heaviest causal tiles first
   const int group = Hq / Hkv;
@@ -699,7 +755,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   const int kw0 = k0 + 64 * wg;  // this warpgroup's first key
   const uint32_t k_addr = smem_u32(smem + C::K_OFF);
   const uint32_t v_addr = smem_u32(smem + C::V_OFF);
-  // dQ: the keys (within the block) and the 64 columns of this warpgroup
+  // dQ: the keys (within the block) and the box of this warpgroup's
+  // columns
   const int dq_key = C::DQ_KEYS == W_BK ? 0 : 64 * wg;
   const int dq_box = C::DQ_KEYS == W_BK ? wg : 0;
 
@@ -826,11 +883,16 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     wg_commit();
     wg_wait_all();
     reg_fence(dqa);
+    // dq rows are D floats: no add may reach column D.  At D = 112 the
+    // second warpgroup's columns 112-127 (products of TMA's zero fill)
+    // would be head h + 1's first 16, or past the buffer.
+    const int dq_j = (wg == 0 ? 64 : C::DQ_N1) / 8;
     float* dq0 = dq + (((int64_t)b * Sq + q0 + r0) * Hq + h) * D +
                  64 * dq_box + col0;
     float* dq1 = dq0 + (int64_t)8 * Hq * D;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      if (j >= dq_j) break;
       atomicAdd(reinterpret_cast<float2*>(dq0 + 8 * j),
                 make_float2(scale * dqa[4 * j], scale * dqa[4 * j + 1]));
       atomicAdd(reinterpret_cast<float2*>(dq1 + 8 * j),
@@ -925,13 +987,13 @@ int simt_by_head_dim(int D, const Args& a) {
   switch (D) {
     case 16: return launch_simt<T, 16>(a);
     case 32: return launch_simt<T, 32>(a);
-    // bf16 too: no wgmma backward at 96 or 112 yet
+    // bf16 too: no wgmma backward at 96 yet
     case 96: return launch_simt<T, 96>(a);
-    case 112: return launch_simt<T, 112>(a);
   }
   if constexpr (sizeof(T) == 4) {  // float32 only: bf16 takes the wgmma
     switch (D) {
       case 64: return launch_simt<T, 64>(a);
+      case 112: return launch_simt<T, 112>(a);
       case 128: return launch_simt<T, 128>(a);
     }
   }
@@ -942,8 +1004,8 @@ int simt_by_head_dim(int D, const Args& a) {
 
 // dq is a zeroed float32 (B, Sq, Hq, D) buffer; lse is the forward's
 // float32 (B, Hq, Sq) row log-sum-exp and delta float32 (B, Hq, Sq)
-// scratch; dk and dv have k's shape and dtype.  bf16 at D = 64 or 128
-// takes the wgmma kernel (Sq a multiple of 64, Sk of 128), everything else
+// scratch; dk and dv have k's shape and dtype.  bf16 at D = 64, 112 or
+// 128 takes the wgmma kernel (Sq a multiple of 64, Sk of 128), everything else
 // the SIMT kernel (both multiples of 64).  Returns 0, -1 for a head dim
 // or length the kernel for (dtype, D) does not take, -2 if libcuda.so.1
 // has no cuTensorMapEncodeTiled, 2000 + its CUresult if a tensor map was
@@ -959,9 +1021,10 @@ extern "C" int flash_attention_bwd_launch(
   const Args a{q,   k,    v,     o,  dout, lse, dq,     delta,
                dk,  dv,   B,     Sq, Sk,   Hq,  Hkv,    causal,
                scale, (cudaStream_t)stream};
-  if (is_bf16 && (D == 64 || D == 128)) {
+  if (is_bf16 && (D == 64 || D == 112 || D == 128)) {
     if (Sq % W_BQ || Sk % W_BK) return ERR_NOT_COMPILED;
-    return D == 64 ? launch_wgmma<64>(a) : launch_wgmma<128>(a);
+    if (D == 64) return launch_wgmma<64>(a);
+    return D == 112 ? launch_wgmma<112>(a) : launch_wgmma<128>(a);
   }
   if (Sq % BQ || Sk % BK) return ERR_NOT_COMPILED;
   return is_bf16 ? simt_by_head_dim<__nv_bfloat16>(D, a)

@@ -22,8 +22,8 @@ log-sum-exp (``lse``, float32 (B, Hq, Sq)) and saves it beside q, k, v and
 o; its backward is ``flash_attention_bwd``: on CUDA tensors the
 hand-written kernels of ``csrc/flash_attention_bwd.cu`` (a library of
 their own, built the same way; (dtype, D) picks the kernel: bfloat16 at
-D = 64 or 128 on the tensor cores, the rest the float32 SIMT one, bfloat16
-at D = 96 and 112 included, on the lse of the wgmma forward), counted in
+D = 64, 112 or 128 on the tensor cores, the rest the float32 SIMT one,
+bfloat16 at D = 96 included, on the lse of the wgmma forward), counted in
 ``flash_attention.bwd_launches``; on CPU
 tensors ``attention_bwd_ref``.  The JAX package has no backward kernel:
 XLA differentiates through its forward.  The backward is not
@@ -49,7 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64, 96, 112, 128)
 WGMMA_HEAD_DIMS = (64, 96, 112, 128)  # bfloat16 at these: the wgmma kernel
-BWD_WGMMA_HEAD_DIMS = (64, 128)  # bfloat16 at these: the wgmma backward
+BWD_WGMMA_HEAD_DIMS = (64, 112, 128)  # bfloat16 at these: the wgmma bwd
 # (blk_q, blk_k) each kernel is compiled for; the first is the default
 # (for the wgmma kernel the faster on the H100, the PERF.md kernel table:
 # BK = 128 at D = 64 and 128, BK = 64 at D = 96 and 112)

@@ -312,9 +312,9 @@ def test_flash_counts_launches_and_rejects_bad_inputs(cuda):
 # over 3), every head dim, S = 64 and 192 on the SIMT forward (D = 32: the
 # wgmma forward's tiles are 128), several 64-row q tiles per 128-key tile
 # of the wgmma backward (S = 384, 256), and the two models' shapes at B = 1.
-# D = 96 and 112 run the SIMT backward on the wgmma forward's lse in bf16,
-# whose 128-row q tiles take S = 384 (three of them) and refuse 192;
-# float32 keeps S = 192 as well.
+# In bf16, D = 96 runs the SIMT backward and D = 112 the wgmma one, both on
+# the wgmma forward's lse, whose 128-row q tiles take S = 384 (three of
+# them) and refuse 192; float32 keeps S = 192 as well.
 BWD_SHAPES = [(1, 128, 3, 1, 16), (2, 64, 6, 2, 32), (1, 192, 5, 5, 32),
               (2, 128, 6, 2, 64), (1, 256, 4, 2, 128), (1, 384, 6, 2, 64),
               (2, 256, 9, 3, 128), (1, 2048, 16, 16, 128),
@@ -462,7 +462,7 @@ def test_flash_wgmma_forward_at_head_dim_112(cuda, no_tf32, causal):
 def test_flash_attention_trains_at_head_dim_112(cuda, no_tf32):
     """zamba2-7b's head dim (112) under autograd on the card, bf16 at its
     shared block's full head count (32/32): the wgmma forward writes lse,
-    the SIMT backward takes it, one launch each; the gradients within the
+    the wgmma backward takes it, one launch each; the gradients within the
     bf16 tolerance of autograd through ``attention_ref`` on the same
     values in float32."""
     q, k, v = (t.requires_grad_(True) for t in
@@ -495,7 +495,7 @@ def test_flash_wgmma_occupancy_is_counted(cuda, D):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_flash_wgmma_backward_at_other_lengths(cuda, no_tf32, D, causal):
     """Sq = 192 (three 64-row q tiles, not a multiple of the forward's
     128) against Sk = 384 (three 128-key tiles), GQA 6 over 2: o and lse
@@ -513,15 +513,43 @@ def test_flash_wgmma_backward_at_other_lengths(cuda, no_tf32, D, causal):
         assert _rel_l2(g, w) <= BWD_TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_flash_wgmma_backward_at_112_clips_dq_at_the_head(cuda, no_tf32,
+                                                          causal):
+    """D = 112: dq's rows are 112 floats, and columns 112-127 of the
+    kernel's second 64-column box would be the next head's first 16 (past
+    the buffer at the last head).  A head's gradients run alone and as the
+    last of Hq = Hkv = 2 are equal: two 128-key tiles give each dq element
+    at most two float32 adds into zero, which commute, so equal is exact;
+    and within bf16's tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+    q, k, v = _qkv(1, 256, 256, 2, 2, 112, torch.bfloat16, cuda, seed=10)
+    do = _qkv(1, 256, 256, 2, 2, 112, torch.bfloat16, cuda, seed=11)[0]
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    both = flash_attention_bwd(q, k, v, o, do, lse=lse, causal=causal)
+    last = [t[:, :, 1:].contiguous() for t in (q, k, v, o, do)]
+    alone = flash_attention_bwd(*last, lse=lse[:, 1:].contiguous(),
+                                causal=causal)
+    torch.cuda.synchronize()
+    for g2, g1 in zip(both, alone):
+        assert torch.equal(g2[:, :, 1:], g1)
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for g, w in zip(both, want):
+        assert _rel_l2(g, w) <= BWD_TOL[torch.bfloat16]
+
+
 def test_flash_wgmma_backward_refuses_what_it_does_not_take(cuda):
-    """bf16 at D = 64, 128 needs Sk a multiple of 128 (the SIMT kernel's
-    64 is not taken instead), the forward's lse, and aligned tensors."""
+    """bf16 at D = 64, 112, 128 needs Sk a multiple of 128 (the SIMT
+    kernel's 64 is not taken instead), the forward's lse, and aligned
+    tensors."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
-    q, k, v = _qkv(1, 192, 192, 2, 1, 64, torch.bfloat16, cuda)
-    o, lse = attention_ref(q, k, v, return_lse=True)
     before = flash_attention.bwd_launches
-    with pytest.raises(ValueError, match="multiples of 64 and 128"):
-        flash_attention_bwd(q, k, v, o, q, lse=lse)
+    for D in (64, 112):
+        q, k, v = _qkv(1, 192, 192, 2, 1, D, torch.bfloat16, cuda)
+        o, lse = attention_ref(q, k, v, return_lse=True)
+        with pytest.raises(ValueError, match="multiples of 64 and 128"):
+            flash_attention_bwd(q, k, v, o, q, lse=lse)
     q, k, v = _qkv(1, 256, 256, 2, 1, 64, torch.bfloat16, cuda)
     o, lse = flash_attention_with_lse(q, k, v)
     with pytest.raises(ValueError, match="lse"):

@@ -19,6 +19,8 @@ from repro.kernels.flash_attention import attention_ref as j_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_delta_ref, attention_ref, flash_attention,
     flash_attention_bwd, flash_attention_with_lse)
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    HEAD_DIMS, bwd_tile)
 
 # (B, Sq, Sk, Hq, Hkv, D, causal): GQA 4:1 at D = 16 and 64, MHA, causal
 # and not; Sk != Sq only bidirectional (the causal mask is top-left
@@ -295,6 +297,57 @@ def test_bwd_at_head_dim_112_in_bf16_matches_float32_formulas():
     got = flash_attention_bwd(q, k, v, o, do, lse=lse)
     f = [t.float() for t in (q, k, v, do)]
     want = attention_bwd_ref(f[0], f[1], f[2], attention_ref(*f[:3]), f[3])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert float((g.float() - w).norm() / w.norm()) <= 2e-2
+
+
+# ----------------------------------------------------------------------
+# routing: bf16 at D = 64, 112, 128 takes the wgmma backward
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_bwd_tile_by_dtype_and_head_dim(D, dtype):
+    """(dtype, D) alone picks the backward's tile: bf16 at D = 64, 112
+    (zamba2-7b's shared block) and 128 the wgmma kernel's 64 q rows by 128
+    keys, every other pair the SIMT kernel's 64 by 64 (bf16 at D = 96
+    included)."""
+    wgmma = dtype == torch.bfloat16 and D in (64, 112, 128)
+    assert bwd_tile(dtype, D) == ((64, 128) if wgmma else (64, 64))
+
+
+def test_bwd_at_head_dim_112_takes_the_wgmma_lengths_on_cpu_too():
+    """The length check runs on CPU tensors as on the card: bf16 at
+    D = 112 refuses Sk = 192 (not a multiple of the wgmma kernel's 128
+    keys), float32 at D = 112 takes it (the SIMT kernel's 64) and gives
+    the plain version's gradients."""
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _inputs(1, 192, 192, 4, 2, 112, seed=12))
+    o, lse = attention_ref(q, k, v, return_lse=True)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, o, do)]
+    with pytest.raises(ValueError, match="multiples of 64 and 128"):
+        flash_attention_bwd(*bf, lse=lse)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse)
+    for g, w in zip(got, attention_bwd_ref(q, k, v, o, do)):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_bwd_at_head_dim_112_in_bf16_with_gqa_matches_float32_formulas(
+        causal):
+    """bf16 at D = 112, GQA 6 over 2, S = 256 (two of the wgmma kernel's
+    128-key tiles): the gradients within 2e-2 rel L2 of the float32
+    gradients of the same rounded values, as the 4/4 case above."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(1, 256, 256, 6, 2, 112, seed=13))
+    o, lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse=lse, causal=causal)
+    f = [t.float() for t in (q, k, v, do)]
+    want = attention_bwd_ref(f[0], f[1], f[2],
+                             attention_ref(*f[:3], causal=causal), f[3],
+                             causal=causal)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert float((g.float() - w).norm() / w.norm()) <= 2e-2
