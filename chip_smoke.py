@@ -85,7 +85,10 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
    the SIMT kernel) and bf16 (2e-2, the wgmma kernel, D = 96 included),
    then at the LLM path's shape (B=2, S=2048, 32 query heads over 8 KV heads, head dim 128,
-   bf16, causal; 2e-2), each at every tile its kernel takes;
+   bf16, causal; 2e-2) and seamless-m4t-medium's encoder's (B=2, S=2048,
+   16/16 heads of 64, bf16, bidirectional; 2e-2) and its serving prefill's
+   (B=4, S=512, the same heads, bidirectional; 2e-2), each at every tile
+   its kernel takes;
 7. llama3-8b at full width and depth (32 layers, d_model 4096, d_ff 14336,
    vocab 128256) with random weights drawn on the card from seed 0:
    ``loss_fn`` at B=2, S=2048 (finite, near ln(vocab)), timed; the same
@@ -133,6 +136,22 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    (2 launches) and its bf16 ``attention_ref`` route (1e-3); the flash
    kernel at moonshot's shape, at each tile, against ``attention_ref`` and
    timed beside SDPA and the bound;
+7e. the encoder-decoder family: seamless-m4t-medium at full width and
+   depth (12 encoder and 12 decoder layers, d_model 1024, 16/16 heads of
+   64, d_ff 4096, vocab 256206, untied; 878,309,376 parameters; bf16, seed
+   0): ``loss_fn`` at B=2 on 2048 frames and 2048 tokens (finite, within
+   1.0 of ln(vocab), exactly 24 ``flash_attention`` launches at D = 64, 12
+   bidirectional in the encoder and 12 causal in the decoder, counted
+   apart), timed; the ``attention_ref`` route in bf16 (loss 1e-3, the
+   argmax printed); serving as the llmserve CLI does (4 requests of 512
+   frames and 512 prompt tokens, prefill, 31 greedy decode steps: 12
+   launches in the prefill, the encoder's, none in decode); the forward
+   profiled; a float32 copy of its first 2 + 2 layers on both routes (loss
+   1e-4, last logits 1e-3 rel L2, argmax equal) and prefill-then-decode on
+   it (128 frames, a prompt of 120, 8 decode steps, each step's logits
+   within 1e-3 of the full forward's); the kernel at the encoder's and the
+   decoder's shapes at each tile against ``attention_ref`` and timed beside
+   SDPA and the bound;
 8. the serving path: ``ServeEngine`` with 4 slots and max_len 1024 answers
    6 requests (prompt lengths 128-512 from seed 0, 32 new tokens each);
    then prefill-then-decode against the full-sequence forward on one
@@ -183,9 +202,11 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    and lse from the forward kernel, its lse held against the plain one;
    rel L2 of dq, dk, dv within 1e-5 in float32 and 2e-2 in bf16, bf16 also
    against the float32 formulas with the float32 o) at ragged small shapes
-   and olmo-1b's, llama3-8b's and zamba2-7b's train shapes (bf16 at D =
-   64, 112, 128 on the wgmma backward, the rest on the SIMT one, D = 112
-   at 6/2 heads and both masks and at zamba2-7b's 32/32 heads included);
+   and olmo-1b's, llama3-8b's, zamba2-7b's and seamless-m4t-medium's
+   encoder's (bidirectional) and decoder's (causal) train shapes (bf16 at
+   D = 64, 112, 128 on the
+   wgmma backward, the rest on the SIMT one, D = 112 at 6/2 heads and both
+   masks and at zamba2-7b's 32/32 heads included);
    olmo-1b
    at full width and depth (16 layers, d_model 2048, vocab 50304, bf16,
    seed 0) trains 3 steps at B=2, S=2048 through ``make_train_step`` and
@@ -232,21 +253,32 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    whose scan is float64 as rwkv6's are; the D = 112 backward timed at
    its train steps' shape beside its plain version, SDPA's backward and
    the bound, and the ``linear_scan`` backward at ``ZAMBA2_SCAN`` (the
-   call and each pass) beside its plain version and the bound; last, the
-   ``linear_scan`` backward timed at rwkv6's shape (the call, each pass,
+   call and each pass) beside its plain version and the bound; then
+   seamless-m4t-medium at full width and depth trains the same way: 3
+   steps, 48 forward and 24 backward flash launches a step (12 of each
+   bidirectional; the backward's counted apart by mask), one step's gradients against ``attention_ref`` in bf16
+   (loss 1e-3, grad_norm 1e-2) and on a float32 copy of the trained
+   params' first 2 + 2 layers (loss 1e-5, every leaf 1e-4 rel L2); the
+   D = 64 backward timed at the encoder's (bidirectional) and the
+   decoder's (causal) train shapes beside its plain version, SDPA's
+   backward and the bound; last, the ``linear_scan`` backward timed at
+   rwkv6's shape (the call, each pass,
    by device time) beside its plain version and the bound.
 
 Kernel launch counts are set to 0 just before each path (``run_dse_full``;
 one timed pass of the paper-scale sweep; the mapping search, the front
 door, the network search and the serving tier, which must launch none;
 one ``loss_fn`` forward of each model (both counts for zamba2-7b, every
-count for the moe models); each serving run; the olmo-1b, rwkv6-1.6b and
-zamba2-7b train steps) and read just after it.
+count for the moe models, seamless-m4t-medium's by mask); each serving
+run (seamless's prefill and its decode steps apart); the olmo-1b,
+rwkv6-1.6b, zamba2-7b and seamless-m4t-medium train steps) and read just
+after it.
 The last two lines are the card's ``nvidia-smi`` name and power limit and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -314,6 +346,19 @@ ZAMBA2_BWD = (2, 2048, 32, 32, 112, True)
 MOONSHOT_SHAPE = (2, 2048, 2048, 16, 16, 128, True)
 MOONSHOT_F32_LAYERS = 4
 DBRX_LAYERS = 2
+# seamless-m4t-medium's loss_fn at B=2 on 2048 frames and 2048 tokens
+# (16/16 heads of 64): the encoder's self-attention runs bidirectionally,
+# the decoder's causally; the depth (encoder + decoder) of its float32
+# copies; serving as the llmserve CLI does it: requests, frames = prompt
+# tokens, new tokens, and the encoder's shape in its prefill; the float32
+# prefill-then-decode check's decode steps (after a prompt of 128 - 8
+# tokens on 128 frames)
+ENCDEC_SHAPE = (2, 2048, 2048, 16, 16, 64, False)
+ENCDEC_CAUSAL = (2, 2048, 2048, 16, 16, 64, True)
+ENCDEC_F32_LAYERS = 2
+ENCDEC_SERVE = (4, 512, 32)
+ENCDEC_PREFILL = (4, 512, 512, 16, 16, 64, False)
+ENCDEC_DECODE_STEPS = 8
 # linear_scan vs linear_scan_ref: float32 sums in another order behind the
 # two-sided exp(+-P) factors (1e-3); bf16 inputs and outputs (5e-2);
 # tests/test_kernels.py's
@@ -1480,7 +1525,9 @@ def phase_flash_vs_plain(device) -> float:
     from repro_torch.kernels.flash_attention.flash_attention import tiles
     worst = 0.0
     cases = [(s, dt) for dt in (torch.float32, torch.bfloat16)
-             for s in FLASH_SHAPES] + [(LLM_SHAPE, torch.bfloat16)]
+             for s in FLASH_SHAPES] + [(LLM_SHAPE, torch.bfloat16),
+                                       (ENCDEC_SHAPE, torch.bfloat16),
+                                       (ENCDEC_PREFILL, torch.bfloat16)]
     for shape, dt in cases:
         causal, D = shape[-1], shape[-2]
         q, k, v = qkv(shape, dt, device)
@@ -1508,10 +1555,32 @@ def phase_flash_vs_plain(device) -> float:
 
 
 def llm_batch(cfg, device, B: int, S: int, seed: int = 0) -> dict:
+    """Tokens and labels (B, S) from ``seed``; for the encoder-decoder also
+    S float32 frames (B, S, frontend_dim) ~ N(0, 1)."""
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
-                                .astype(np.int32)).to(device)
-            for k in ("tokens", "labels")}
+    out = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                               .astype(np.int32)).to(device)
+           for k in ("tokens", "labels")}
+    if cfg.is_encdec:
+        out["frontend"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.frontend_dim)).astype(np.float32)).to(device)
+    return out
+
+
+def forward_logits(params, batch, cfg, max_len: int | None = None
+                   ) -> torch.Tensor:
+    """The full-sequence forward's logits: the decoder's on the encoder's
+    output for the encoder-decoder, else ``transformer.forward``'s, with no
+    cache or, given ``max_len``, filling a cache of that many positions
+    (the path a prefill takes)."""
+    from repro_torch.models import encdec, transformer
+    if cfg.is_encdec:
+        enc = encdec._encode(params, batch["frontend"], cfg)
+        return encdec._decoder(params, batch["tokens"], enc, cfg)[0]
+    tokens = {"tokens": batch["tokens"]}
+    return transformer.forward(params, tokens, cfg, cache=(
+        transformer.empty_cache(params, tokens, cfg, train=max_len is None,
+                                max_len=max_len or 0)))[0]
 
 
 def phase_llm_forward(cfg, params, device, kernel, B: int = 2,
@@ -1639,34 +1708,47 @@ def profile_llm(cfg, params, device, kernel: str | tuple[str, ...],
 
 def phase_prefill_vs_decode(cfg, params, device, S: int = 128,
                             rel_tol: float = 5e-2,
-                            need_argmax: bool = True) -> float:
-    """Decoding token S-1 with the cache of the prefix against the
-    full-sequence forward at S-1 (``tests/test_archs_smoke.py``'s check),
-    at full width in ``cfg.dtype``: relative L2 error of the logits (held
-    to ``rel_tol``), and the argmax (held equal with ``need_argmax``).
-    Returns the relative error."""
-    from repro_torch.models import registry, transformer
+                            need_argmax: bool = True,
+                            steps: int = 1) -> float:
+    """Decoding the last ``steps`` of S tokens one at a time on the cache of
+    the prefix against the full-sequence forward at their positions
+    (``tests/test_archs_smoke.py``'s check; the encoder-decoder's on S
+    frames ~ N(0, 1), the same for both), at full width in ``cfg.dtype``:
+    relative L2 error of each step's logits over the real vocab (held to
+    ``rel_tol``), and the argmax (held equal with ``need_argmax``).
+    Returns the largest relative error."""
+    from repro_torch.models import registry
     rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
-                            .astype(np.int32)).to(device)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
+                                        .astype(np.int32)).to(device)}
+    if cfg.is_encdec:
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (1, S, cfg.frontend_dim)).astype(np.float32)).to(device)
+    toks, P = batch["tokens"], S - steps
+    V = cfg.vocab  # past it, the padded vocab's -1e30 (their squares overflow)
+    errs, same = [], []
     with torch.no_grad():
-        batch = {"tokens": toks}
-        full, _ = transformer.forward(params, batch, cfg, cache=(
-            transformer.empty_cache(params, batch, cfg, train=False,
-                                    max_len=S + 4)))
-        _, cache = registry.prefill(params, {"tokens": toks[:, :S - 1]}, cfg,
-                                    S + 4)
-        step, _ = registry.decode_step(params, {"tokens": toks[:, S - 1:]},
-                                       cache, cfg)
-    a, b = full[0, -1].float(), step[0, -1].float()
-    rel = float((a - b).norm() / a.norm())
-    same = int(a.argmax()) == int(b.argmax())
-    log(f"[prefill-vs-decode] {cfg.name} {str(cfg.dtype)[6:]} S={S}: logits "
-        f"rel L2 err {rel:.4g} (limit {rel_tol}), argmax equal {same}"
-        f"{'' if need_argmax else ' (not required)'}; top-2 gap full "
-        f"{top2_gap(a[None])}, decode {top2_gap(b[None])}")
-    check(rel <= rel_tol and (same or not need_argmax), "prefill-then-decode "
-          "disagrees with the full-sequence forward")
+        full = forward_logits(params, batch, cfg, max_len=S + 4)
+        _, cache = registry.prefill(params, {**batch, "tokens": toks[:, :P]},
+                                    cfg, S + 4)
+        for t in range(P, S):
+            step, cache = registry.decode_step(
+                params, {"tokens": toks[:, t:t + 1]}, cache, cfg)
+            a, b = full[0, t, :V].float(), step[0, -1, :V].float()
+            errs.append(float((a - b).norm() / a.norm()))
+            same.append(int(a.argmax()) == int(b.argmax()))
+    rel = max(errs)
+    depth = f"{cfg.n_layers}" + (f" + {cfg.n_dec_layers}" if
+                                 cfg.n_dec_layers else "")
+    log(f"[prefill-vs-decode] {cfg.name} {depth} layers "
+        f"{str(cfg.dtype)[6:]} S={S}, {steps} decode steps: logits rel L2 "
+        f"err {rel:.4g}" + (f" (by step {[float(f'{e:.3g}') for e in errs]})"
+                           if steps > 1 else "") +
+        f" (limit {rel_tol}), argmax equal {all(same)}"
+        f"{'' if need_argmax else ' (not required)'}; top-2 gap of the last "
+        f"full {top2_gap(a[None])}, decode {top2_gap(b[None])}")
+    check(rel <= rel_tol and (all(same) or not need_argmax), "prefill-then-"
+          "decode disagrees with the full-sequence forward")
     return rel
 
 
@@ -2136,6 +2218,212 @@ def phase_moe(device, name: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# the encoder-decoder family: seamless-m4t-medium
+# ----------------------------------------------------------------------
+
+def encdec_forward(cfg, params, device, B: int, S: int):
+    """``loss_fn`` on S frames and S tokens: once to warm up, then timed
+    with the flash launch count set to 0 just before and read just after,
+    the launches of ``layers.flash_attention``'s calls counted apart by
+    mask (bidirectional, the encoder's; causal, the decoder's).  Returns
+    (loss, seconds, {"bidirectional": n, "causal": n})."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers, registry
+    batch = llm_batch(cfg, device, B, S)
+    by_mask = {"bidirectional": 0, "causal": 0}
+    wrapper = layers.flash_attention
+
+    def counted(q, k, v, *, causal=True, **kw):
+        before = flash_attention.launches
+        out = wrapper(q, k, v, causal=causal, **kw)
+        by_mask["causal" if causal else "bidirectional"] += \
+            flash_attention.launches - before
+        return out
+    layers.flash_attention = counted
+    try:
+        with torch.no_grad():
+            registry.loss_fn(params, batch, cfg)
+            sync(device)
+            flash_attention.launches = 0
+            by_mask.update(bidirectional=0, causal=0)
+            t0 = time.perf_counter()
+            loss = float(registry.loss_fn(params, batch, cfg))
+            sync(device)
+            seconds = time.perf_counter() - t0
+            launches = flash_attention.launches
+    finally:
+        layers.flash_attention = wrapper
+    log(f"[encdec] loss_fn B={B} on {S} frames and {S} tokens: loss "
+        f"{loss:.6g} (ln vocab {np.log(cfg.vocab):.6g}), {seconds:.4f} s, "
+        f"{B * S / seconds:.6g} tokens/s; flash_attention launches "
+        f"{launches}: {by_mask['bidirectional']} bidirectional (encoder), "
+        f"{by_mask['causal']} causal (decoder)")
+    check(launches == sum(by_mask.values()), "flash_attention launched "
+          "outside layers.flash_attention")
+    return loss, seconds, by_mask
+
+
+def encdec_serving(cfg, params, device) -> None:
+    """The llmserve CLI's ``draw_batch`` and ``serve`` on ``ENCDEC_SERVE``'s
+    requests (frames and prompt tokens from seed 0, a cache of prompt + new
+    positions, greedy decode steps): once to warm up, then timed, the flash
+    launch count set to 0 just before and read just after the prefill and
+    just after the decode steps.  Held: one launch an encoder layer in the
+    prefill (its frames a multiple of 128; the decoder's prefill fills its
+    cache on the chunked path) and none in decode, which never reaches the
+    encoder; every token inside the vocab."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import llmserve
+    B, P, gen = ENCDEC_SERVE
+    batch = llmserve.draw_batch(cfg, B, P, device)
+    llmserve.serve(params, cfg, batch, gen, device)
+    flash_attention.launches = 0
+    t_pre, t_dec, toks, (pre, after) = llmserve.serve(
+        params, cfg, batch, gen, device,
+        probe=lambda: flash_attention.launches)
+    dec = after - pre
+    log(f"[encdec-serving] {B} requests of {P} frames and {P} prompt tokens, "
+        f"max_len {P + gen}: prefill {t_pre:.4f} s ({B * P / t_pre:.6g} "
+        f"prompt tokens/s), {gen - 1} decode steps {t_dec:.4f} s = "
+        f"{B * (gen - 1) / t_dec:.6g} tokens/s; flash_attention launches in "
+        f"the prefill {pre}, in decode {dec}; sample {toks[0, :8].tolist()}")
+    check(pre == cfg.n_layers and dec == 0, f"encdec serving launched "
+          f"flash_attention {pre} times in the prefill and {dec} in decode, "
+          f"not {cfg.n_layers} (the encoder) and 0")
+    check(toks.shape == (B, gen) and bool(((toks >= 0) &
+                                           (toks < cfg.vocab)).all()),
+          "encdec serving gave tokens outside the vocab")
+
+
+def phase_encdec(device, name: str) -> list[dict]:
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16/16 heads of 64, d_ff 4096, vocab
+    256206, untied; bf16) with random weights drawn on the card from seed
+    0.  ``loss_fn`` at B=2 on 2048 frames and 2048 tokens, timed
+    (``encdec_forward``): the loss finite and within 1.0 of ln(vocab),
+    exactly 24 flash launches, 12 bidirectional and 12 causal; the
+    ``attention_ref`` route in bf16 (loss 1e-3, the argmax printed) and on
+    a float32 copy of the first ``ENCDEC_F32_LAYERS`` + ``ENCDEC_F32_LAYERS``
+    layers (loss 1e-4, last logits 1e-3 rel L2, argmax equal); float32
+    prefill-then-decode on that copy (``phase_prefill_vs_decode``, the
+    last ``ENCDEC_DECODE_STEPS`` of 128 tokens on 128 frames); serving
+    through the llmserve CLI's own loop (``encdec_serving``); the forward
+    profiled.  Then the kernel at ``ENCDEC_SHAPE`` and ``ENCDEC_CAUSAL``
+    (``flash_shape_record``).  Returns their two records."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.models import layers, registry
+    from repro_torch.models.param import count_params, init_params
+    t0 = time.perf_counter()
+    cfg = REGISTRY["seamless-m4t-medium"]
+    params = init_params(registry.specs(cfg), 0, device)
+    sync(device)
+    n = count_params(registry.specs(cfg))
+    log(f"[encdec] {cfg.name} at full width and depth: {n} parameters drawn "
+        f"on the card in {time.perf_counter() - t0:.2f} s; {cfg.n_layers} "
+        f"encoder and {cfg.n_dec_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, frontend_dim "
+        f"{cfg.frontend_dim}, {str(cfg.dtype)[6:]}")
+    check(n == 878_309_376, f"seamless-m4t-medium has {n} parameters, not "
+          "878309376")
+    B, S = ENCDEC_SHAPE[:2]
+    loss, _, by_mask = encdec_forward(cfg, params, device, B, S)
+    check(np.isfinite(loss) and abs(loss - np.log(cfg.vocab)) < 1.0,
+          f"seamless loss {loss} is not near ln(vocab)")
+    check(by_mask == {"bidirectional": cfg.n_layers,
+                      "causal": cfg.n_dec_layers}, f"seamless loss_fn "
+          f"launched flash_attention {by_mask}, not {cfg.n_layers} "
+          f"bidirectional and {cfg.n_dec_layers} causal")
+    route = (layers, "flash_attention", flash_attention, attention_ref)
+    phase_plain_route(cfg, params, device, *route, need_argmax=False)
+    encdec_serving(cfg, params, device)
+    batch = llm_batch(cfg, device, B, S, seed=2)
+    with torch.no_grad():
+        profile_call(lambda: registry.loss_fn(params, batch, cfg),
+                     f"{cfg.name} loss_fn B={B} S={S}", device, "flash_")
+    del batch
+    n32 = ENCDEC_F32_LAYERS
+    cfg32 = cfg.replace(n_layers=n32, n_dec_layers=n32, dtype=torch.float32)
+    params32 = float_params(cut_layers(params, n32))
+    del params
+    torch.cuda.empty_cache()
+    phase_plain_route(cfg32, params32, device, *route, rel_tol=1e-4,
+                      l2_tol=1e-3)
+    phase_prefill_vs_decode(cfg32, params32, device, rel_tol=1e-3,
+                            need_argmax=False, steps=ENCDEC_DECODE_STEPS)
+    del params32
+    torch.cuda.empty_cache()
+    records = [flash_shape_record(
+        device, name, shape, cfg.name, by_mask[mask],
+        f"flash_attention (D=64, {mask})", f"flash_wgmma_kernel at D = 64, "
+        f"{mask}: the {part}, 16/16 heads")
+        for shape, mask, part in (
+            (ENCDEC_SHAPE, "bidirectional", "encoder's self-attention, every "
+             "q tile over all 16 key tiles"),
+            (ENCDEC_CAUSAL, "causal", "decoder's self-attention"))]
+    log(f"[encdec] phase {time.perf_counter() - t0:.1f} s")
+    return records
+
+
+def phase_encdec_train(device, card: str, name: str,
+                       bwd_abs: dict) -> list[dict]:
+    """seamless-m4t-medium at full width and depth trains (``phase_train``:
+    2 x 24 flash forwards and 24 flash backwards a step, 12 of each
+    bidirectional, the backward's counted by mask, every encoder and
+    decoder layer rematerialised); one step's gradients against the route
+    with ``flash_attention`` on ``attention_ref`` under autograd, in bf16
+    (loss 1e-3, grad_norm 1e-2) and on a float32 copy of the trained
+    params' first ``ENCDEC_F32_LAYERS`` + ``ENCDEC_F32_LAYERS`` layers
+    (loss 1e-5, every leaf 1e-4 rel L2).  Returns the D = 64 backward's
+    records, bidirectional (timed at ``ENCDEC_BWD``) and causal (at
+    ``ENCDEC_CAUSAL_BWD``), each with the train steps' launches of its mask
+    and ``bwd_abs`` at its shape, the largest absolute error against the
+    plain version there."""
+    from repro_torch.configs import REGISTRY
+    t0 = time.perf_counter()
+    with bwd_by_mask():
+        cfg, params, launches = phase_train(device, card,
+                                            REGISTRY["seamless-m4t-medium"])
+        phase_train_plain_route(cfg, params, device, loss_tol=1e-3,
+                                norm_tol=1e-2)
+        n32 = ENCDEC_F32_LAYERS
+        cut = cfg.replace(n_layers=n32, n_dec_layers=n32,
+                          dtype=torch.float32)
+        params32 = f32_params(cut_layers(params, n32))
+        del params
+        torch.cuda.empty_cache()
+        phase_train_plain_route(cut, params32, device, loss_tol=1e-5,
+                                leaf_tol=1e-4)
+        del params32
+        torch.cuda.empty_cache()
+    log(f"[train] seamless-m4t-medium {time.perf_counter() - t0:.1f} s; "
+        "launches in the train steps: " + ", ".join(
+            f"{n} {c}" for n, c in launches.items()))
+    records = []
+    for shape, mask, how in (
+            (ENCDEC_BWD, "bidirectional", "without the mask, every key tile "
+             "over all 16 q tiles; times at seamless-m4t-medium's encoder's"),
+            (ENCDEC_CAUSAL_BWD, "causal", "causal; times at "
+             "seamless-m4t-medium's decoder's")):
+        records.append({
+            "name": f"flash_attention_bwd (D=64, {mask})", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:78",
+            "design": "no TPU counterpart (XLA's gradient of the forward): "
+                      "the delta pass, then flash_bwd_wgmma_kernel<64> "
+                      f"{how} {shape}",
+            "launches": launches[f"flash_attention_bwd ({mask})"],
+            "max_abs_err": bwd_abs[shape],
+            **flash_bwd_times(shape, device, name),
+        })
+    return records
+
+
+# ----------------------------------------------------------------------
 # the RWKV-6 path: linear_scan, rwkv6-1.6b forward and serving
 # ----------------------------------------------------------------------
 
@@ -2543,15 +2831,15 @@ def phase_plain_route(cfg, params, device, module, attr: str, kernel, plain,
     loss within ``rel_tol`` relative; the last logits' relative L2 error
     (held to ``l2_tol`` where given), both routes' argmaxes and top-2 gaps
     printed and, with ``need_argmax``, the argmaxes equal."""
-    from repro_torch.models import registry, transformer
+    from repro_torch.models import registry
     batch = llm_batch(cfg, device, B, S)
-    tokens = {"tokens": batch["tokens"]}
 
     def run():
+        # the real vocab's logits: a padded vocab's -1e30 would make the
+        # float32 norm inf and the rel L2 0
         loss = float(registry.loss_fn(params, batch, cfg))
-        logits, _ = transformer.forward(params, tokens, cfg, cache=(
-            transformer.empty_cache(params, tokens, cfg, train=True)))
-        return loss, logits[:, -1].float()
+        return loss, forward_logits(params, batch, cfg)[
+            :, -1, :cfg.vocab].float()
 
     with torch.no_grad():
         loss_k, last_k = run()
@@ -2597,6 +2885,8 @@ BWD_SHAPES = [(1, 128, 3, 1, 16, True), (2, 128, 6, 2, 64, False),
               (1, 384, 6, 2, 112, True), (1, 384, 6, 2, 112, False)]
 OLMO_BWD = (2, 2048, 16, 16, 128, True)    # olmo-1b, a train step's shape
 LLAMA_BWD = (2, 2048, 32, 8, 128, True)    # llama3-8b's
+ENCDEC_BWD = (2, 2048, 16, 16, 64, False)  # seamless-m4t-medium's encoder
+ENCDEC_CAUSAL_BWD = ENCDEC_BWD[:-1] + (True,)  # and its decoder
 TRAIN_SHAPE = (2, 2048)                    # olmo-1b train steps: B, S
 TRAIN_STEPS = 3
 
@@ -2622,7 +2912,8 @@ def phase_flash_bwd_vs_plain(device) -> dict:
     inputs (o and lse from the forward kernel; the plain version computes
     its own lse, and the kernel's is held against it first), rel L2 of
     dq, dk and dv, at ragged small shapes and olmo-1b's, float32 and
-    bf16, and at llama3-8b's and zamba2-7b's train shapes in bf16; for
+    bf16, and at llama3-8b's, zamba2-7b's and seamless-m4t-medium's (both
+    masks) train shapes in bf16; for
     bf16 also against the float32 gradient of the bf16 values with the
     float32 o (the wgmma forward's o has P rounded to bf16: held to the
     same 2e-2).  Returns the largest absolute error against the plain
@@ -2635,7 +2926,8 @@ def phase_flash_bwd_vs_plain(device) -> dict:
     worst: dict[tuple, float] = {}
     cases = [(s, dt) for s in BWD_SHAPES + [OLMO_BWD]
              for dt in (torch.float32, torch.bfloat16)] + [
-        (LLAMA_BWD, torch.bfloat16), (ZAMBA2_BWD, torch.bfloat16)]
+        (LLAMA_BWD, torch.bfloat16), (ZAMBA2_BWD, torch.bfloat16),
+        (ENCDEC_BWD, torch.bfloat16), (ENCDEC_CAUSAL_BWD, torch.bfloat16)]
     for shape, dt in cases:
         causal = shape[-1]
         q, k, v, o, do, lse = bwd_inputs(shape, dt, device)
@@ -2794,8 +3086,43 @@ def tree_items(tree, prefix: str = ""):
             yield f"{prefix}{k}", tree[k]
 
 
+# the flash backward's launches under autograd by mask while
+# ``bwd_by_mask`` is on, else None
+BWD_BY_MASK: dict | None = None
+
+
+@contextlib.contextmanager
+def bwd_by_mask():
+    """While on, the flash backward's launches under autograd are also
+    counted apart by mask (``flash_attention.bwd_launches`` read around
+    each ``_FlashAttention.backward`` by its ``causal``), and
+    ``launch_counts`` reports them as "flash_attention_bwd
+    (bidirectional)" and "flash_attention_bwd (causal)"."""
+    global BWD_BY_MASK
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _FlashAttention)
+    kept = _FlashAttention.__dict__["backward"]
+    inner = _FlashAttention.backward
+
+    def backward(ctx, do):
+        before = flash_attention.bwd_launches
+        out = inner(ctx, do)
+        BWD_BY_MASK["causal" if ctx.causal else "bidirectional"] += \
+            flash_attention.bwd_launches - before
+        return out
+    BWD_BY_MASK = {"bidirectional": 0, "causal": 0}
+    _FlashAttention.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        _FlashAttention.backward = kept
+        BWD_BY_MASK = None
+
+
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by name."""
+    """Every kernel wrapper's launch count, by name (and the flash
+    backward's by mask while ``bwd_by_mask`` is on)."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.linear_scan import linear_scan, linear_scan_bwd
     from repro_torch.kernels.maestro_eval import maestro_eval
@@ -2803,7 +3130,9 @@ def launch_counts() -> dict:
             "flash_attention_bwd": flash_attention.bwd_launches,
             "linear_scan": linear_scan.launches,
             "linear_scan_bwd": linear_scan_bwd.launches,
-            "maestro_eval": maestro_eval.launches}
+            "maestro_eval": maestro_eval.launches,
+            **{f"flash_attention_bwd ({m})": n
+               for m, n in (BWD_BY_MASK or {}).items()}}
 
 
 def reset_counts() -> None:
@@ -2813,14 +3142,18 @@ def reset_counts() -> None:
     maestro_eval.launches = linear_scan.launches = 0
     linear_scan_bwd.launches = 0
     flash_attention.launches = flash_attention.bwd_launches = 0
+    for m in BWD_BY_MASK or {}:
+        BWD_BY_MASK[m] = 0
 
 
 def train_launches(cfg) -> tuple[dict, tuple[str, ...]]:
     """The launches of each kernel in one train step of ``cfg`` (full remat
-    runs each forward again in the backward; every other count 0), and the
-    name fragments of the backward's device kernels."""
+    runs each forward again in the backward; every other count 0; the
+    encoder-decoder's flash backward also by mask, read while
+    ``bwd_by_mask`` is on), and the name fragments of the backward's device
+    kernels."""
     from repro_torch.models.transformer import n_attn_apps
-    L = cfg.n_layers
+    L = cfg.n_layers + cfg.n_dec_layers  # the encoder's and the decoder's
     if cfg.family == "ssm":
         return {"linear_scan": 2 * L, "linear_scan_bwd": L}, ("lsb_",)
     if cfg.family == "hybrid":
@@ -2828,7 +3161,10 @@ def train_launches(cfg) -> tuple[dict, tuple[str, ...]]:
         return {"flash_attention": 2 * apps, "flash_attention_bwd": apps,
                 "linear_scan": 2 * L, "linear_scan_bwd": L}, (
             "flash_bwd", "lsb_")
-    return {"flash_attention": 2 * L, "flash_attention_bwd": L}, (
+    masks = {"flash_attention_bwd (bidirectional)": cfg.n_layers,
+             "flash_attention_bwd (causal)": cfg.n_dec_layers} \
+        if cfg.is_encdec else {}
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L, **masks}, (
         "flash_bwd",)
 
 
@@ -2883,7 +3219,11 @@ def phase_train(device, card: str = "", cfg=None):
         return (p, o), m
 
     def batch_fn(i):
-        return batch_for_step(i, global_batch=B, seq=S, vocab=cfg.vocab)
+        b = batch_for_step(i, global_batch=B, seq=S, vocab=cfg.vocab)
+        if cfg.is_encdec:  # the train CLI's frames
+            b["frontend"] = np.random.default_rng(i).normal(
+                size=(B, S, cfg.frontend_dim)).astype(np.float32)
+        return b
 
     torch.cuda.reset_peak_memory_stats(device)
     with tempfile.TemporaryDirectory() as d:
@@ -3090,7 +3430,9 @@ def phase_train_plain_route(cfg, params, device, loss_tol: float,
     nrel = abs(nk - np_) / np_
     leaf = {n: rel_l2(a, b.double()) for n, a, b in zip(names, g_k, g_p)}
     swapped = ", ".join(f"{a} -> {p.__name__}" for _, a, p in routes)
-    log(f"[train-plain-route] {cfg.name} {cfg.n_layers} layers "
+    depth = f"{cfg.n_layers}" + (f" + {cfg.n_dec_layers}" if
+                                 cfg.n_dec_layers else "")
+    log(f"[train-plain-route] {cfg.name} {depth} layers "
         f"{str(cfg.dtype)[6:]} B={B} S={S} with {swapped}: loss kernel "
         f"{loss_k:.8g}, plain {loss_p:.8g}, rel err {rel:.3g} (limit "
         f"{loss_tol}); grad_norm kernel {nk:.8g}, plain {np_:.8g}, rel err "
@@ -3473,12 +3815,14 @@ def phase_train_cli() -> None:
 
 
 def cut_layers(params, n: int) -> dict:
-    """``params`` with every stacked leaf of ``blocks`` cut to its first
-    ``n`` layers (views); the other leaves as they are."""
+    """``params`` with every stacked leaf of ``blocks`` (``enc_blocks`` and
+    ``dec_blocks`` for the encoder-decoder) cut to its first ``n`` layers
+    (views); the other leaves as they are."""
     def cut(tree):
         return {k: cut(v) if isinstance(v, dict) else v[:n]
                 for k, v in tree.items()}
-    return {k: cut(v) if k == "blocks" else v for k, v in params.items()}
+    return {k: cut(v) if k in ("blocks", "enc_blocks", "dec_blocks") else v
+            for k, v in params.items()}
 
 
 def phase_zamba2_train(device, card: str, name: str, bwd_abs: float,
@@ -3555,11 +3899,13 @@ def phase_training(device, card: str, name: str,
     """The training slices: the flash backward, olmo-1b's train steps and
     their routes, a checkpoint round trip; then rwkv6-1.6b's train steps
     (the linear_scan backward) and their routes, and the train CLI on
-    rwkv6; then zamba2-7b's (``phase_zamba2_train``).  Returns the flash
-    backward's records (olmo-1b's shape, then zamba2-7b's at D = 112), the
-    scan backward's at zamba2-7b's shape (``scan_bwd_abs``: the largest
-    absolute error against the plain version by shape) and the
-    linear_scan backward's launches in rwkv6's train steps."""
+    rwkv6; then zamba2-7b's (``phase_zamba2_train``) and
+    seamless-m4t-medium's (``phase_encdec_train``).  Returns the flash
+    backward's records (olmo-1b's shape, zamba2-7b's at D = 112, then
+    seamless's at D = 64, bidirectional and causal), the scan backward's at
+    zamba2-7b's shape (``scan_bwd_abs``: the largest absolute error against
+    the plain version by shape) and the linear_scan backward's launches in
+    rwkv6's train steps."""
     from repro_torch.configs import REGISTRY
     t0 = time.perf_counter()
     bwd_abs = phase_flash_bwd_vs_plain(device)
@@ -3599,6 +3945,7 @@ def phase_training(device, card: str, name: str,
         f"{launches['linear_scan_bwd']} backward")
     records += phase_zamba2_train(device, card, name, bwd_abs[ZAMBA2_BWD],
                                   scan_bwd_abs[ZAMBA2_SCAN])
+    records += phase_encdec_train(device, card, name, bwd_abs)
     log(f"[train] the training phase {time.perf_counter() - t0:.1f} s")
     return records, launches["linear_scan_bwd"]
 
@@ -3714,6 +4061,8 @@ def main() -> int:
     log(f"[zamba2] {time.perf_counter() - t0:.1f} s")
     records.append(phase_moe(device, name))
     log(f"[moe] {time.perf_counter() - t0:.1f} s")
+    records += phase_encdec(device, name)
+    log(f"[encdec] {time.perf_counter() - t0:.1f} s")
 
     scan_abs = phase_scan_vs_plain(device)
     scan_bwd_abs = phase_scan_bwd_vs_plain(device)

@@ -22,6 +22,56 @@ from ..models import registry
 from ..models.param import init_params
 
 
+def draw_batch(cfg, B: int, P: int, device) -> dict:
+    """The CLI's batch, drawn from seed 0 as the JAX package's: B prompts
+    of P tokens; the vision frontend's zeros, or the encoder-decoder's P
+    float32 frames ~ N(0, 1)."""
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
+        device=device)}
+    if cfg.frontend == "vision":
+        batch["frontend"] = torch.zeros(
+            (B, cfg.frontend_len, cfg.frontend_dim), device=device)
+    if cfg.is_encdec:
+        batch["frontend"] = torch.as_tensor(
+            rng.normal(size=(B, P, cfg.frontend_dim)), dtype=torch.float32,
+            device=device)
+    return batch
+
+
+def serve(params, cfg, batch: dict, gen: int, device, probe=None):
+    """Prefill ``batch`` into a cache of its prompt + ``gen`` positions,
+    then ``gen - 1`` greedy decode steps.  Returns (prefill seconds, decode
+    seconds, the tokens (B, gen), what ``probe()`` reads just after the
+    prefill and just after the decode steps, [] without ``probe``)."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    reads = []
+    max_len = batch["tokens"].shape[1] + gen
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = registry.prefill(params, batch, cfg, max_len)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        sync()
+        t_prefill = time.perf_counter() - t0
+        reads += [probe()] if probe else []
+
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, cache = registry.decode_step(params, {"tokens": tok},
+                                                 cache, cfg)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            out.append(tok)
+        sync()
+        t_dec = time.perf_counter() - t0
+        reads += [probe()] if probe else []
+    return t_prefill, t_dec, torch.cat(out, dim=1), reads
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(REGISTRY), default="olmo-1b")
@@ -38,36 +88,8 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     params = init_params(registry.specs(cfg), 0, device)
     B, P = args.requests, args.prompt_len
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab, (B, P)), dtype=torch.int32,
-        device=device)}
-    if cfg.frontend == "vision":
-        batch["frontend"] = torch.zeros(
-            (B, cfg.frontend_len, cfg.frontend_dim), device=device)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    max_len = P + args.gen
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        logits, cache = registry.prefill(params, batch, cfg, max_len)
-        tok = torch.argmax(logits[:, -1], -1)[:, None]
-        sync()
-        t_prefill = time.perf_counter() - t0
-
-        out = [tok]
-        t0 = time.perf_counter()
-        for _ in range(args.gen - 1):
-            logits, cache = registry.decode_step(params, {"tokens": tok},
-                                                 cache, cfg)
-            tok = torch.argmax(logits[:, -1], -1)[:, None]
-            out.append(tok)
-        sync()
-        t_dec = time.perf_counter() - t0
-    toks = torch.cat(out, dim=1)
+    batch = draw_batch(cfg, B, P, device)
+    t_prefill, t_dec, toks, _ = serve(params, cfg, batch, args.gen, device)
     print(f"prefill {B}x{P} in {t_prefill:.2f}s; "
           f"decoded {args.gen - 1} steps in {t_dec:.2f}s "
           f"({B * (args.gen - 1) / max(t_dec, 1e-9):.1f} tok/s)")

@@ -83,6 +83,10 @@ def main(argv=None) -> int:
             b["frontend"] = np.zeros(
                 (args.batch, cfg.frontend_len, cfg.frontend_dim),
                 np.float32)
+        if cfg.is_encdec:
+            b["frontend"] = np.random.default_rng(step).normal(
+                size=(args.batch, args.seq, cfg.frontend_dim)
+            ).astype(np.float32)
         return b
 
     def wrapped(state, batch):

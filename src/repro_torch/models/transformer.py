@@ -1,5 +1,5 @@
 """Decoder-LM assembly for the dense, moe, ssm (RWKV-6) and hybrid (Zamba2)
-families.
+families (the encoder-decoder one is ``encdec``).
 
 One spec builder and three entry points:
 
@@ -34,15 +34,6 @@ from .moe import apply_moe, moe_specs
 from .param import ParamSpec, SpecTree
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in ("dense", "moe") or (cfg.family, cfg.ssm_type) in (
-            ("ssm", "rwkv6"), ("hybrid", "mamba2")):
-        return
-    raise NotImplementedError(
-        f"repro_torch: the {cfg.family} family ({cfg.name}) is not "
-        "ported yet; see ROADMAP.md, queue 1 item 7")
-
-
 # ----------------------------------------------------------------------
 # Spec builders
 # ----------------------------------------------------------------------
@@ -55,7 +46,6 @@ def frontend_specs(cfg: ModelConfig) -> dict:
 
 
 def lm_specs(cfg: ModelConfig) -> SpecTree:
-    _require_ported(cfg)
     L = cfg.n_layers
     specs: SpecTree = {"embed": embed_specs(cfg)}
     fn = norm_specs(cfg)
@@ -70,7 +60,7 @@ def lm_specs(cfg: ModelConfig) -> SpecTree:
     elif cfg.family == "hybrid":
         block = dict(ssm.mamba2_specs(cfg, L))
         block["norm"] = norm_specs(cfg, L)
-    else:
+    elif cfg.family in ("dense", "moe"):
         block = {"attn": attention_specs(cfg, L)}
         an = norm_specs(cfg, L)
         if an:
@@ -78,6 +68,8 @@ def lm_specs(cfg: ModelConfig) -> SpecTree:
             block["mlp_norm"] = norm_specs(cfg, L)
         block["mlp"] = moe_specs(cfg, L) if cfg.family == "moe" \
             else mlp_specs(cfg, L)
+    else:
+        raise ValueError(cfg.family)  # encdec: encdec.encdec_specs
     specs["blocks"] = block
     if cfg.family == "hybrid":
         specs["shared"] = {"attn": attention_specs(cfg),
@@ -278,7 +270,6 @@ def embed_input(params, batch, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 
 def forward(params, batch, cfg: ModelConfig, cache=None, decode=False):
-    _require_ported(cfg)
     if decode:
         length = _cache_length(cache, cfg)
         B = batch["tokens"].shape[0]
@@ -325,7 +316,6 @@ def decode_step(params, batch, cache, cfg: ModelConfig):
 # ----------------------------------------------------------------------
 
 def _cache_length(cache, cfg: ModelConfig):
-    _require_ported(cfg)
     if cfg.family == "ssm":
         return cache[1]  # rwkv: explicit token counter
     if cfg.family == "hybrid":
@@ -341,7 +331,6 @@ def empty_cache(params, batch, cfg: ModelConfig, *, train: bool,
     carry), token counter), the same for both.  hybrid: ((the float32 Mamba-2
     state, the conv state), the shared block's KV cache of one entry an
     application, None for ``train``)."""
-    _require_ported(cfg)
     tokens = batch["tokens"]
     B, L, dev = tokens.shape[0], cfg.n_layers, tokens.device
     if cfg.family == "ssm":

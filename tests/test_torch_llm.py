@@ -127,18 +127,6 @@ def test_dense_specs_match_reference(arch):
             int(np.prod(s.shape)) for s in js.values())
 
 
-@pytest.mark.parametrize("arch", sorted(
-    a for a in ARCHS
-    if J_REGISTRY[a].family not in ("dense", "moe", "ssm", "hybrid")))
-def test_other_families_are_not_ported_yet(arch):
-    """encdec; the moe family (moonshot-v1-16b-a3b, dbrx-132b), the ssm
-    one (rwkv6-1.6b) and the hybrid one (zamba2-7b) are ported and held
-    against the reference in tests/test_torch_moe.py,
-    tests/test_torch_ssm.py and tests/test_torch_hybrid.py."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.specs(REGISTRY[arch].reduced())
-
-
 def test_init_params_is_deterministic_and_scaled():
     jc, tc = _cfgs("llama3-8b")
     specs = R.specs(tc)
@@ -279,12 +267,18 @@ def test_gqa_decode(cache_dtype):
 LOSS_TOL = {"float32": F32_TOL, "bfloat16": 5e-3}
 
 
+# the dense configs: olmo-1b, ln_nonparam and tied embeddings; llama3-8b,
+# GQA (4 query heads over 2 KV heads); granite-20b, learned positions, QKV
+# bias, LayerNorm, GELU and MQA (4 query heads over 1); qwen2-72b, QKV bias
+# and RoPE at theta 1e6
+LLM_ARCHS = ["olmo-1b", "llama3-8b", "granite-20b", "qwen2-72b"]
+
+
 @pytest.mark.parametrize("route", ["plain", "pallas-interpret"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["olmo-1b", "llama3-8b"])
+@pytest.mark.parametrize("arch", LLM_ARCHS)
 def test_loss_fn_matches_reference(arch, dtype, route, monkeypatch):
-    """olmo-1b: ln_nonparam and tied embeddings; llama3-8b: GQA (4 query
-    heads over 2 KV heads).  S=128 so that the reference's kernel route
+    """S=128 so that the reference's kernel route
     (``REPRO_USE_PALLAS=interpret``) takes the Pallas kernel."""
     if route == "pallas-interpret":
         monkeypatch.setenv("REPRO_USE_PALLAS", "interpret")
@@ -298,7 +292,7 @@ def test_loss_fn_matches_reference(arch, dtype, route, monkeypatch):
     assert float(got) == pytest.approx(want, rel=LOSS_TOL[dtype])
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "llama3-8b"])
+@pytest.mark.parametrize("arch", LLM_ARCHS)
 def test_prefill_then_decode_matches_reference(arch):
     jc, tc = _cfgs(arch, "float32")
     pj, pt = _params(jc, "float32")

@@ -47,7 +47,7 @@ def test_every_module_is_listed():
                  "repro_torch.models.ssm",
                  "repro_torch.configs.llama3_8b",
                  "repro_torch.models.layers", "repro_torch.models.transformer",
-                 "repro_torch.models.registry",
+                 "repro_torch.models.registry", "repro_torch.models.encdec",
                  "repro_torch.inference.engine",
                  "repro_torch.launch.llmserve",
                  "repro_torch.interop", "repro_torch.resilience.errors",
@@ -258,6 +258,42 @@ def test_rwkv_entry_points_run_on_cpu_on_request(no_cuda):
     with pytest.raises(ValueError, match="asked for"):
         registry.prefill(params, {"tokens": torch.from_numpy(toks)}, cfg,
                          16, device="cuda")
+
+
+def _encdec():
+    cfg = REGISTRY["seamless-m4t-medium"].reduced()
+    return cfg, init_params(registry.specs(cfg), 0, "cpu")
+
+
+def _encdec_batch(cfg) -> dict:
+    toks = np.zeros((1, 8), np.int32)
+    return {"tokens": toks, "labels": toks,
+            "frontend": np.ones((1, 12, cfg.frontend_dim), np.float32)}
+
+
+def test_encdec_entry_points_raise_without_device(no_cuda):
+    cfg, params = _encdec()
+    b = _encdec_batch(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.loss_fn(params, b, cfg)
+    with pytest.raises(RuntimeError):
+        registry.prefill(params, b, cfg, 16)
+
+
+def test_encdec_entry_points_run_on_cpu_on_request(no_cuda):
+    cfg, params = _encdec()
+    b = _encdec_batch(cfg)
+    loss = registry.loss_fn(params, b, cfg, device="cpu")
+    assert np.isfinite(float(loss))
+    logits, cache = registry.prefill(params, b, cfg, 16, device="cpu")
+    assert all(t.device.type == "cpu" for t in
+               list(cache["self"].values()) + list(cache["cross"]))
+    logits, _ = registry.decode_step(params, {"tokens": b["tokens"][:, :1]},
+                                     cache, cfg, device="cpu")
+    assert logits.shape == (1, 1, cfg.padded_vocab)
+    with pytest.raises(ValueError, match="asked for"):
+        registry.loss_fn(params, dict(b, tokens=torch.from_numpy(
+            b["tokens"])), cfg, device="cuda")
 
 
 def _map_case():

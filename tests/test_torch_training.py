@@ -103,12 +103,22 @@ def _batch(step=0, b=B, s=S, vocab=64) -> dict:
     return batch_for_step(step, global_batch=b, seq=s, vocab=vocab)
 
 
+def _step_batch(cfg) -> dict:
+    """The one-step tests' batch for ``cfg``: ``_batch`` at its vocab, and
+    for the encoder-decoder float32 frames (B, S, frontend_dim) ~ N(0, 1)."""
+    b = _batch(vocab=cfg.vocab)
+    if cfg.is_encdec:
+        b["frontend"] = np.random.default_rng(1).normal(
+            size=(B, S, cfg.frontend_dim)).astype(np.float32)
+    return b
+
+
 @functools.lru_cache(maxsize=None)
 def _j_value_and_grad(arch: str, dtype: str):
     """The reference's loss and gradients on ``_batch`` (jitted once)."""
     jc, _ = _cfgs(arch, dtype)
     vg = jax.jit(jax.value_and_grad(lambda p, b: JR.loss_fn(p, b, jc)))
-    b = {k: jnp.asarray(v) for k, v in _batch(vocab=jc.vocab).items()}
+    b = {k: jnp.asarray(v) for k, v in _step_batch(jc).items()}
     return vg(_j_params(arch, dtype), b)
 
 
@@ -292,13 +302,17 @@ def test_dataset_state_round_trip_matches_reference():
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "rwkv6-1.6b", "zamba2-7b",
-                                  "moonshot-v1-16b-a3b", "dbrx-132b"])
+                                  "moonshot-v1-16b-a3b", "dbrx-132b",
+                                  "seamless-m4t-medium"])
 def test_train_step_matches_reference_float32(arch):
     """Every leaf of the gradients, the updated params and both moments.
     zamba2-7b: two groups of 2 Mamba-2 layers and a shared-block
     application each, each group rematerialised (full remat, as the
     reference's scans): the first gradient through the hybrid stack.
-    The moe configs route through top-2 of 4 experts with capacity."""
+    The moe configs route through top-2 of 4 experts with capacity.
+    seamless-m4t-medium: 2 encoder and 2 decoder layers, each
+    rematerialised, on 32 frames; the gradient reaches the encoder through
+    the cross K/V."""
     jc, tc_ = _cfgs(arch, "float32")
     pj = _j_params(arch, "float32")
     loss_j, grads_j = _j_value_and_grad(arch, "float32")
@@ -315,7 +329,7 @@ def test_train_step_matches_reference_float32(arch):
         return real(params, grads, state, cfg)
     adamw.apply_updates = spy
     try:
-        pt2, st2, m = step(pt, adamw.init_state(pt), _batch(vocab=jc.vocab))
+        pt2, st2, m = step(pt, adamw.init_state(pt), _step_batch(jc))
     finally:
         adamw.apply_updates = real
     assert pt2 is pt and all(p.requires_grad for p in leaves(pt2))
