@@ -81,6 +81,18 @@ Phases (any failure ends the run with a non-zero exit code and no result):
    temporary directory (trace and metrics written); ``kill@serve-drain``
    with the 16 queries parked, and a fresh server recovering them at
    start, as the fixture; the three launch counts 0;
+5e. static analysis (``repro_torch.analysis``, no hand kernel on this
+   path): ``python -m repro_torch.launch.lint --json``'s ``main`` on the
+   card, rc 0 (the concurrency lint, the dataflow corpus and the graph
+   audit of the 16 universal evaluator cases; every finding waived, every
+   waiver used, no ``TORCH-SYNC``); one line a case (aten ops, kernels,
+   host-to-device copies and synchronisations flagged by sync debug mode
+   in one chunk, its wall ms); then the same audit of the mapping
+   search's own chunk (vgg16-conv13's exhaustive case: its op, space,
+   reduction and block of 1024, each level-count family), kernels and
+   host-to-device copies a chunk beside the search's (5) mix of chunks;
+   every flagged synchronisation at a site the audit names as making a
+   host tensor; the three launch counts 0;
 6. ``flash_attention`` against its plain version (``attention_ref``) with
    TF32 off, at the shapes of ``tests/test_kernels.py`` in float32 (2e-6,
    the SIMT kernel) and bf16 (2e-2, the wgmma kernel, D = 96 included),
@@ -1454,6 +1466,119 @@ def phase_serve(device, card: str = "") -> None:
         obs.disable_tracing()
     n_flush = len(tracer.spans("flush"))
     check(n_flush == 3, f"serve: {n_flush} flush spans traced, not 3")
+
+
+# ----------------------------------------------------------------------
+# Static analysis (repro_torch.analysis): no hand kernel on this path
+# ----------------------------------------------------------------------
+
+# kernels and host-to-device copies a chunk of the warm vgg16-conv13
+# exhaustive search under torch.profiler on an H100 80GB HBM3 at 700 W
+# (ROADMAP, "Host launch overhead on the DSE side")
+SEARCH_CHUNK_PROFILED = (5584.8, 647.3)
+
+
+def lint_case_line(name: str, rec: dict, card: str = "") -> str:
+    if "kernels" not in rec:       # on the CPU: no card to count
+        return (f"[lint] {name}: {rec['aten_ops']} aten ops, host-made "
+                f"{rec['host_made']}")
+    return (f"[lint] {name}: {rec['aten_ops']} aten ops, "
+            f"{rec['kernels']} kernels, {rec['h2d_copies']} host-to-device "
+            f"copies, {sum(rec['syncs'].values())} flagged syncs "
+            f"{rec['syncs']}, host-made {rec['host_made']}, chunk "
+            f"{rec['wall_ms']:.4f} ms wall" + (f" ({card})" if card else ""))
+
+
+def phase_lint(device, card: str = "") -> None:
+    """Static analysis on ``device``: the lint CLI's ``main`` with
+    ``--json`` (rc 0 required: every finding waived, every waiver used),
+    one line a graph-audit case, no ``TORCH-SYNC``, and every
+    synchronisation sync debug mode flags inside a chunk at a site the
+    audit names as making a host tensor (``TORCH-H2D``); then the audit of
+    the mapping search's own chunk: vgg16-conv13's exhaustive case (phase
+    5's op, space, reduction and block), one case a level-count family,
+    and kernels and host-to-device copies a chunk as one warm exhaustive
+    search mixes the families, beside the profile of that search that
+    ``SEARCH_CHUNK_PROFILED`` keeps."""
+    import io
+    from repro_torch import mapspace, obs
+    from repro_torch.analysis import graph_audit
+    from repro_torch.core import dnn_models, tensor_analysis
+    from repro_torch.core.vectorized import (ReduceSpec,
+                                             universal_reduced_evaluator)
+    from repro_torch.launch import lint
+    from repro_torch.mapspace.space import gene_tables
+    from repro_torch.mapspace.universal import (encode_genes, family_label,
+                                                universal_specs)
+    t0 = time.perf_counter()
+    tag = card if device.type == "cuda" else ""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint.main(["--json", "--device", str(device)])
+    doc = json.loads(out.getvalue())
+    check(rc == 0, f"lint: rc {rc}: unwaived {doc['findings']}, unused "
+          f"waivers {doc['unused_waivers']}")
+    every = doc["findings"] + doc["waived"]
+    check(not [f for f in every if f["code"] == "TORCH-SYNC"],
+          "lint: the graph audit found host syncs")
+    named = {f["site"] for f in every if f["code"] == "TORCH-H2D"}
+    audit = doc["audit"]
+    waived = sorted((f["code"], f["site"]) for f in every)
+    log(f"[lint] rc {rc} on {audit['device_name']}: {doc['n_findings']} "
+        f"findings, all waived ({waived}), {audit['n_cases']} audit cases")
+    for name, rec in audit["cases"].items():
+        log(lint_case_line(name, rec, tag))
+        syncs = set(rec.get("syncs", {}))
+        check(syncs <= named, f"lint: {name}: flagged syncs at "
+              f"{sorted(syncs - named)}, no host-made site")
+    log(f"[lint] CLI {time.perf_counter() - t0:.1f} s")
+
+    mk = _load_script("make_mapsearch_fixture")
+    case = json.loads(FIXTURE.read_text())["cases"][MAPSEARCH_CASES[0]]
+    op, space, kw = mk.build_case(case["spec"], tensor_analysis, dnn_models,
+                                  mapspace)
+    block = kw["block"]
+    genes = mapspace.enumerate_genes(space)
+    is2 = ~gene_tables(op, space).cluster_is_none[genes[:, 2]]
+    reduce = ReduceSpec(objective=kw["objective"], k=min(kw["top_k"], block),
+                        return_vals=True, pareto=False)
+    per_fam = {}
+    for spec, rows in zip(universal_specs(op, space), (~is2, is2)):
+        fam = family_label(op, spec)
+        sub = genes[rows][:block]
+        check(len(sub) == block, f"{fam}: {len(sub)} rows, not a block")
+        ops = encode_genes(op, space, sub, spec, num_pes=kw["num_pes"],
+                           noc_bw=kw["noc_bw"])
+        ops["live"] = np.ones(block, np.float32)
+        fs, rec = graph_audit.audit_case(graph_audit.FamilyCase(
+            name=f"{fam}/search", family=fam, kind="reduced", ops=ops,
+            fn=universal_reduced_evaluator(op, spec, reduce)), device)
+        log(lint_case_line(f"{fam}/search, block {block}", rec, tag))
+        check(not [f for f in fs if f.code in ("TORCH-SYNC", "TORCH-TRACE")],
+              f"{fam}: {[f.one_line() for f in fs]}")
+        syncs = set(rec.get("syncs", {}))
+        sites = {f.site for f in fs if f.code == "TORCH-H2D"}
+        check(syncs <= sites, f"{fam}: flagged syncs at "
+              f"{sorted(syncs - sites)}, no host-made site")
+        per_fam[fam] = rec
+    if device.type != "cuda":
+        return
+
+    def hits() -> dict:
+        return {k.split("family=")[1].rstrip("]"): v for k, v in
+                obs.metrics().counters("universal.warm_hits").items()}
+    h0 = hits()
+    mapspace.search(op, space=space, device=device, **kw)
+    mix = {f: hits().get(f, 0) - h0.get(f, 0) for f in per_fam}
+    n = sum(mix.values())
+    check(n > 0, "the warm exhaustive search counted no chunk")
+    kern = sum(mix[f] * per_fam[f]["kernels"] for f in mix) / n
+    h2d = sum(mix[f] * per_fam[f]["h2d_copies"] for f in mix) / n
+    log(f"[lint] {MAPSEARCH_CASES[0]} as one warm search mixes its chunks "
+        f"({mix}): {kern:.1f} kernels and {h2d:.1f} host-to-device copies "
+        f"a chunk, against {SEARCH_CHUNK_PROFILED[0]} and "
+        f"{SEARCH_CHUNK_PROFILED[1]} in the kept profile of that search; "
+        f"phase {time.perf_counter() - t0:.1f} s ({tag})")
 
 
 def fp32_ops_per_design(T) -> int:
@@ -4013,6 +4138,15 @@ def main() -> int:
         f"{sv_l[1]}, linear_scan {sv_l[2]} (no hand kernel on this path)")
     check(sv_l == (0, 0, 0), f"the serving tier launched hand kernels "
           f"{sv_l}")
+    maestro_eval.launches = flash_attention.launches = 0
+    linear_scan.launches = 0
+    phase_lint(device, card=card)
+    ln_l = (maestro_eval.launches, flash_attention.launches,
+            linear_scan.launches)
+    log(f"[launches] static analysis: maestro_eval {ln_l[0]}, "
+        f"flash_attention {ln_l[1]}, linear_scan {ln_l[2]} (no hand kernel "
+        f"on this path)")
+    check(ln_l == (0, 0, 0), f"static analysis launched hand kernels {ln_l}")
 
     name = torch.cuda.get_device_name(0)
     records = [kernel_record(tables, device, launches,

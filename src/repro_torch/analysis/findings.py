@@ -1,15 +1,15 @@
 """The shared finding/waiver schema of the static analyzers (the port's
 copy of ``repro.analysis.findings``).
 
-Every analyzer reports :class:`Finding` rows with a registered code.  The
-port has one analyzer so far, ``speclint``; the concurrency linter and a
-graph audit of the evaluators (the counterpart of the reference's jaxpr
-audit, with codes of its own) are still to come, and the concurrency
-linter's codes are registered here already.  Intentional exceptions live
-in a checked-in ``waivers.toml`` next to this module (none yet) — each
-waiver names the (code, site) pair it excuses plus a one-line
+Every analyzer (``concurrency``, ``speclint`` and ``graph_audit``, the
+counterpart of the reference's jaxpr audit with codes of its own)
+reports :class:`Finding` rows with a registered code;
+``repro_torch.launch.lint`` consumes them uniformly.  Intentional
+exceptions live in a checked-in ``waivers.toml`` next to this module —
+each waiver names the (code, site) pair it excuses plus a one-line
 justification, and a waiver that matches no finding FAILS the lint
-(stale waivers rot into blind spots).
+(stale waivers rot into blind spots; the lint forces their removal the
+moment the underlying code is fixed).
 """
 from __future__ import annotations
 
@@ -27,6 +27,19 @@ except ModuleNotFoundError:           # 3.10: the vendored shim
 # ----------------------------------------------------------------------
 
 CODES: dict[str, str] = {
+    # graph audit of the universal evaluators (analysis/graph_audit.py)
+    "TORCH-TRACE": "evaluator family raised under the aten-op recorder",
+    "TORCH-F64": "float64/complex128 tensor inside a hot-path evaluator",
+    "TORCH-WIDEN": "explicit dtype conversion widens within a kind",
+    "TORCH-SYNC": "op inside the chunk makes the host wait for device "
+                  "data (a host sync per chunk on the card)",
+    "TORCH-H2D": "tensor made from host data inside the chunk (a "
+                 "pageable host-to-device copy per call on the card)",
+    "TORCH-UNUSED": "operand that no op reads — its value is baked in, "
+                    "not an operand",
+    "TORCH-SHRINK": "reduction tail does not shrink its inputs below "
+                    "half, so chunk memory stops being O(block)",
+    "TORCH-OPBUDGET": "per-family aten op count over budget",
     # concurrency linter (the reference's analysis/concurrency.py)
     "CONC-UNLOCKED": "shared attribute mutated outside the owning "
                      "lock/condition in a threaded module",

@@ -1,7 +1,8 @@
 """The port on the card: the maestro_eval, flash_attention (forward and
 backward) and linear_scan (forward and backward) CUDA kernels against
 their plain PyTorch versions, their launch counts and input checks,
-training through the kernels, and the default device.  Imports no JAX, so it runs where only
+training through the kernels, the graph audit of the DSE evaluators, and
+the default device.  Imports no JAX, so it runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
@@ -1167,3 +1168,19 @@ def test_server_flush_on_the_card_equals_the_serve_fixture(cuda, tmp_path):
         assert [st for st, _ in res] == [200] * len(res)
         for (_, body), want in zip(res, case["reports"]):
             fx.compare_reports(body, want)
+
+
+def test_graph_audit_on_the_card(cuda):
+    """The graph audit of the 16 universal evaluator cases on the card:
+    no host sync, and every synchronisation that sync debug mode flags in
+    a chunk lies at a site the audit names as making a host tensor (each
+    such tensor is a pageable host-to-device copy)."""
+    from repro_torch.analysis import graph_audit
+    findings, report = graph_audit.audit(cuda)
+    assert report["device"] == "cuda" and report["n_cases"] == 16
+    assert not [f.one_line() for f in findings if f.code == "TORCH-SYNC"]
+    named = {f.site for f in findings if f.code == "TORCH-H2D"}
+    assert named
+    for name, rec in report["cases"].items():
+        assert set(rec["syncs"]) <= named, name
+        assert rec["kernels"] > 0, name

@@ -75,6 +75,9 @@ def test_every_module_is_listed():
                  "repro_torch.obs.profile",
                  "repro_torch.analysis.findings",
                  "repro_torch.analysis.speclint",
+                 "repro_torch.analysis.concurrency",
+                 "repro_torch.analysis.graph_audit",
+                 "repro_torch.launch.lint",
                  "repro_torch.serve.deadline",
                  "repro_torch.serve.admission",
                  "repro_torch.serve.drain", "repro_torch.serve.loadgen",
